@@ -1,0 +1,33 @@
+"""Architecture configs the port serves, with the JAX package's registry API.
+
+``get_config(name)`` returns the full production config; ``smoke_config(name)``
+the reduced same-family config for CPU tests. Only the archs whose slice has
+been ported are registered; the others wait for theirs (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import importlib
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = ["gemma3_1b"]
+
+# canonical external ids (assignment spelling) -> module names
+ALIASES = {"gemma3-1b": "gemma3_1b"}
+
+
+def _module(name: str):
+    mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod_name not in ARCH_IDS:
+        raise KeyError(
+            f"arch {name!r} is not ported yet (ported: {ARCH_IDS}); see ROADMAP.md queue A"
+        )
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def smoke_config(name: str) -> ArchConfig:
+    return _module(name).SMOKE

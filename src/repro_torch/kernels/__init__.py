@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels, their plain PyTorch versions, and dispatch.
+
+* :mod:`repro_torch.kernels.ref`             — plain PyTorch versions (CPU path, oracle)
+* :mod:`repro_torch.kernels.flash_attention` — wrapper of ``csrc/flash_attention.cu``
+* :mod:`repro_torch.kernels.ops`             — ``impl`` dispatch ("auto" | "cuda" | "ref")
+* :mod:`repro_torch.kernels._build`          — nvcc build of ``csrc/*.cu``, loaded with ctypes
+
+Importing these modules needs no ``nvcc`` and no card: a kernel is built at
+its first launch.
+"""

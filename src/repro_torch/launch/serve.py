@@ -1,0 +1,79 @@
+"""Serving driver: batched greedy decode on one card (counterpart of ``repro.launch.serve``).
+
+``python -m repro_torch.launch.serve --arch gemma3-1b --full`` serves the full
+config on the card; ``--smoke`` (the default) the reduced one. There is one
+card, so the reference's mesh and sharding arguments are dropped.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import decode_step, init_cache, init_params
+
+
+def serve(
+    arch: str,
+    smoke: bool = True,
+    batch: int = 4,
+    steps: int = 32,
+    max_len: int = 128,
+    seed: int = 0,
+    device: DeviceLike = None,
+    verbose: bool = True,
+    production_mesh: bool = False,
+) -> float:
+    """Decode ``steps`` greedy tokens for ``batch`` streams; returns tokens/s.
+
+    The first step is warm-up and is not timed, as in the reference. Raises
+    if the last step's logits are not finite.
+    """
+    if production_mesh:
+        raise ValueError("production_mesh: the port serves on one card and has no mesh")
+    if not 1 < steps <= max_len:
+        raise ValueError(f"steps must be in (1, max_len={max_len}], got {steps}")
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+
+    params = init_params(cfg, seed=seed, device=dev)
+    cache = init_cache(cfg, batch, max_len, device=dev)
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 1)), device=dev)
+    with torch.inference_mode():
+        logits, cache = decode_step(cfg, params, cache, tok, 0, device=dev)  # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(1, steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = decode_step(cfg, params, cache, tok, i, device=dev)
+        finite = bool(torch.isfinite(logits).all())  # waits for the device
+    dt = time.perf_counter() - t0
+    if not finite:
+        raise FloatingPointError(f"{arch}: non-finite logits after {steps} decode steps")
+    tps = batch * (steps - 1) / dt
+    if verbose:
+        print(f"{arch}: {tps:.1f} tok/s (batch={batch}, {dt / (steps - 1) * 1e3:.1f} ms/step)")
+    return tps
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args()
+    serve(args.arch, smoke=args.smoke, batch=args.batch, steps=args.steps, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

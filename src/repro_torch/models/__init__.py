@@ -1,0 +1,29 @@
+"""Model substrate of the port (counterpart of ``repro.models``).
+
+* :mod:`repro_torch.models.config`      — ArchConfig (a copy of the reference's)
+* :mod:`repro_torch.models.layers`      — norms, rope, MLPs, embeddings
+* :mod:`repro_torch.models.attention`   — GQA full/sliding-window attention, decode
+* :mod:`repro_torch.models.transformer` — the block-pattern model builder
+* :mod:`repro_torch.models.convert`     — the reference's parameters for the port
+"""
+
+from repro_torch.models.config import ArchConfig, EncoderConfig, MambaConfig, MoEConfig
+from repro_torch.models.transformer import (
+    abstract_params,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+)
+
+__all__ = [
+    "ArchConfig",
+    "MoEConfig",
+    "MambaConfig",
+    "EncoderConfig",
+    "init_params",
+    "forward",
+    "init_cache",
+    "decode_step",
+    "abstract_params",
+]

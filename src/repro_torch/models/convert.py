@@ -1,0 +1,60 @@
+"""Parameters of the JAX package, converted for the port.
+
+The mapping is one to one: the same key paths, the leading stacked-repeat
+axis kept, the same dtypes. The JAX tree arrives as numpy arrays (the port
+imports nothing of JAX); bf16 arrives as numpy's ``bfloat16`` extension dtype
+and is carried over bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import Params
+from repro_torch.models.transformer import abstract_params
+
+__all__ = ["params_from_jax", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a: Any) -> torch.Tensor:
+    """A CPU tensor holding ``a``'s values in its dtype (bf16 included)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _convert(ref: Params, tree: Mapping[str, Any], path: str, device: torch.device) -> Params:
+    if set(tree) != set(ref):
+        raise KeyError(f"{path or '/'}: keys {sorted(tree)} != expected {sorted(ref)}")
+    out: Params = {}
+    for k, want in ref.items():
+        sub = f"{path}/{k}"
+        if isinstance(want, dict):
+            if not isinstance(tree[k], Mapping):
+                raise TypeError(f"{sub}: expected a subtree")
+            out[k] = _convert(want, tree[k], sub, device)
+            continue
+        t = tensor_from_numpy(tree[k])
+        if t.shape != want.shape or t.dtype != want.dtype:
+            raise ValueError(
+                f"{sub}: got {tuple(t.shape)} {t.dtype}, expected {tuple(want.shape)} {want.dtype}"
+            )
+        out[k] = t.to(device)
+    return out
+
+
+def params_from_jax(
+    cfg: ArchConfig, tree: Mapping[str, Any], *, device: DeviceLike = None
+) -> Params:
+    """The port's parameters from ``repro.models.init_params(cfg, ...)``'s tree.
+
+    ``tree`` is that tree with every leaf as a numpy array; every key path,
+    shape and dtype must match the port's own layout, or this raises.
+    """
+    return _convert(abstract_params(cfg), tree, "", resolve_device(device))
