@@ -7,7 +7,7 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 ``build/`` and runs these phases, each printing one JSON line:
 
 1. device   — the card, the toolchain, the kernel build (seconds, ptxas -v).
-2. kernels  — each kernel against its plain PyTorch version on the card:
+2. kernels  — flash attention against its plain PyTorch version on the card:
               the attention cases of tests/test_kernels.py plus the gemma3-1b
               prefill shapes (tolerance 2e-5 fp32, 2e-2 bf16).
 3. prefill  — full-width gemma3-1b ``forward`` on B=2, S=2048: fp32 kernel
@@ -17,6 +17,20 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 5. serve    — ``serve("gemma3_1b", smoke=False, batch=4, steps=32)``.
 6. profile  — torch.profiler over one bf16 prefill forward and 4 decode
               steps: device time by kernel and the device's idle share.
+
+Then the jamba-v0.1-52b path, full width, cut to one 8-layer pattern unit:
+
+7. jamba_kernels — the selective scan against its plain version: the cases
+              of tests/test_kernels.py (2e-4 fp32, 3e-2 bf16), the jamba
+              prefill shape and a ragged one; kernel, plain and bound times;
+              flash attention at the jamba attention shape beside
+              ``scaled_dot_product_attention``.
+8. jamba_prefill — bf16 ``forward`` on B=2, S=2048 (launch counts: 7 scans
+              and 1 attention, top-1 agreement with the plain path, tokens/s,
+              peak memory); one fp32 mamba mixer, kernel vs plain.
+9. jamba_profile — torch.profiler over one bf16 prefill and 4 decode steps.
+10. jamba_decode — fp32 model, 16 ``decode_step``s against ``forward``.
+11. jamba_serve — ``serve("jamba_v01_52b", smoke=False, n_layers=8, ...)``.
 
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
@@ -64,6 +78,28 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_RTOL = 1e-5
 TOP1_MIN = 0.99
 
+# jamba-v0.1-52b, cut to one pattern unit (7 mamba layers, 1 attention layer)
+JAMBA = "jamba_v01_52b"
+JAMBA_LAYERS = 8
+# the selective scan: tests/test_kernels.py MAMBA_CASES (B, T, Di, N, x/dt type,
+# B/C type), then the jamba prefill shape and a ragged one (T and Di not
+# multiples of the kernel's 32-step chunk and 64-channel block), both with B
+# and C as strided slices of the x -> (dt, B, C) projection, as in the mixer
+MAMBA_CASES = [
+    (2, 128, 256, 16, "float32", "float32"),
+    (1, 256, 512, 16, "float32", "float32"),
+    (2, 64, 128, 8, "float32", "float32"),
+    (1, 128, 256, 16, "bfloat16", "float32"),
+]
+MAMBA_PREFILL = (PREFILL_B, PREFILL_S, 8192, 16, "bfloat16", "bfloat16")
+MAMBA_RAGGED = (2, 1000, 8100, 16, "bfloat16", "bfloat16")
+MAMBA_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+DT_RANK = 256  # jamba's dt_rank = d_model / 16
+# flash attention at the jamba attention layer's shape
+JAMBA_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, None, None, 0, "bfloat16")
+# the mamba mixer in fp32, kernel vs plain: max |diff| <= MIXER_RTOL * max |plain|
+MIXER_RTOL = 2e-4
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -92,13 +128,26 @@ def main() -> int:
     dev = resolve_device()
     smi = phase_device(torch)
     fa_row = phase_kernels(torch, dev)
-    fa_row.update(phase_prefill(torch, dev))
+    gemma_fa = phase_prefill(torch, dev)
     phase_decode(torch, dev)
     phase_serve(torch)
     phase_profile(torch, dev)
 
+    ms_row, jamba_fa = phase_jamba_kernels(torch, dev)
+    launches = phase_jamba_prefill(torch, dev)
+    phase_jamba_decode(torch, dev)
+    phase_jamba_serve(torch)
+    ms_row["launches"] = launches["mamba_scan"]
+    jamba_fa["launches"] = launches["flash_attention"]
+    # flash attention's row keeps its first path's numbers (gemma3-1b, per launch
+    # over a forward's 26); the jamba path's stand beside them under by_path
+    fa_row.update({k: gemma_fa[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")})
+    gemma_fa["max_abs_err"] = fa_row["max_abs_err"]
+    fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa}
+
     print(smi, flush=True)
-    print(json.dumps({"kernels": [fa_row]}), flush=True)
+    print(json.dumps({"kernels": [fa_row, ms_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -106,6 +155,21 @@ def main() -> int:
 
 
 # ------------------------------- phases -------------------------------------
+
+
+def _reset_counts():
+    """Every kernel's launch count to 0, just before a main path is driven."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.mamba_scan as ms
+
+    fa.LAUNCHES = ms.LAUNCHES = 0
+
+
+def _counts() -> dict:
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.mamba_scan as ms
+
+    return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES}
 
 
 def phase_device(torch) -> str:
@@ -261,12 +325,13 @@ def phase_prefill(torch, dev) -> dict:
         params = init_params(cfg, seed=0)
         forward(cfg, params, batch)  # warm-up (cuBLAS handles, kernel load)
         torch.cuda.synchronize()
-        fa.LAUNCHES = 0
+        _reset_counts()
         t0 = time.perf_counter()
         lk, _ = forward(cfg, params, batch)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-        launches = fa.LAUNCHES
+        counts = _counts()
+        launches = counts["flash_attention"]
         lr, _ = forward(cfg, params, batch, impl="ref")
         finite = bool(torch.isfinite(lk).all())
         top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
@@ -274,6 +339,7 @@ def phase_prefill(torch, dev) -> dict:
         del lk, lr, params
         torch.cuda.empty_cache()
     check(launches == cfg.n_layers, f"bf16 forward launched the kernel {launches} times, not 26")
+    check(counts["mamba_scan"] == 0, f"gemma3-1b forward launched mamba_scan: {counts}")
     check(finite, "bf16 logits are not finite")
     check(top1 >= TOP1_MIN, f"bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
 
@@ -308,8 +374,7 @@ def phase_prefill(torch, dev) -> dict:
         kernel_ms_per_forward=agg["ms"], kernel_shapes=shapes,
     )
     n_calls = sum(LAYERS_PER_FORWARD.values())
-    t_ops = agg["flops"] / PEAK_FLOPS["bfloat16"]
-    t_bytes = agg["bytes"] / PEAK_BYTES
+    t_ops, t_bytes = agg["flops"] / PEAK_FLOPS["bfloat16"] * 1e3, agg["bytes"] / PEAK_BYTES * 1e3
     # per launch, averaged over the 26 launches of one forward at their shapes
     return {
         "launches": launches,
@@ -406,6 +471,239 @@ def phase_serve(torch) -> None:
     tps = serve("gemma3_1b", smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
     emit("serve", batch=batch, steps=steps, tok_per_s=tps, ms_per_step=batch / tps * 1e3)
     check(tps > 0, "serve returned no rate")
+
+
+# ------------------------------ jamba phases ---------------------------------
+
+
+def _scan_inputs(torch, dev, case, seed, strided_bc):
+    """The inputs of tests/test_kernels.py (dt = softplus(n) * 0.1, A = -exp(0.5 n));
+    with ``strided_bc`` B and C are slices of one (B, T, dt_rank + 2N) tensor."""
+    Bsz, T, Di, N, xdt, bcdt = case
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dtype="float32"):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dev, getattr(torch, dtype))
+
+    x = t(Bsz, T, Di, dtype=xdt)
+    dt = (torch.nn.functional.softplus(t(Bsz, T, Di)) * 0.1).to(x.dtype)
+    A = -torch.exp(t(Di, N) * 0.5)
+    if strided_bc:
+        xdbc = t(Bsz, T, DT_RANK + 2 * N, dtype=bcdt)
+        Bm, Cm = xdbc[..., DT_RANK : DT_RANK + N], xdbc[..., DT_RANK + N :]
+    else:
+        Bm, Cm = t(Bsz, T, N, dtype=bcdt), t(Bsz, T, N, dtype=bcdt)
+    return x, dt, A, Bm, Cm, t(Di)
+
+
+def _scan_bound(case):
+    """Least time of one scan: x, dt, B, C, A, D read once and y written once
+    over HBM, and 7 fp32 operations per (b, t, d, n) (dt*A, exp, dt*x*B, the
+    two state terms, h*C and its sum) plus 3 per (b, t, d) (dt*x, D*x, the
+    add) over the fp32 CUDA-core rate."""
+    Bsz, T, Di, N, xdt, bcdt = case
+    xs, bs = (2 if xdt == "bfloat16" else 4), (2 if bcdt == "bfloat16" else 4)
+    nbytes = 3 * Bsz * T * Di * xs + 2 * Bsz * T * N * bs + 4 * (Di * N + Di)
+    ops = 7 * Bsz * T * Di * N + 3 * Bsz * T * Di
+    t_ops, t_bytes = ops / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def phase_jamba_kernels(torch, dev):
+    """K2 against its plain version on every case, with its kernel, plain and
+    bound times for each; K1 at the jamba attention shape."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.mamba_scan as ms
+    from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
+
+    rows = []
+    cases = [(f"mamba_case_{i}", c, False) for i, c in enumerate(MAMBA_CASES)]
+    cases += [("jamba_prefill", MAMBA_PREFILL, True), ("ragged", MAMBA_RAGGED, True)]
+    for seed, (name, case, strided) in enumerate(cases):
+        args = _scan_inputs(torch, dev, case, seed, strided)
+        out, ref = ms.mamba_scan(*args), mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        tol = MAMBA_TOL[case[4]]
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+        rows.append({"case": name, "shape": case[:4], "dtype": case[4:], "max_abs_err": err,
+                     "tol": tol, "ok": ok,
+                     "ms": _cuda_ms(torch, lambda a=args: ms.mamba_scan(*a)),
+                     "plain_ms": _cuda_ms(torch, lambda a=args: mamba_scan_ref(*a), iters=3, warmup=1),
+                     **_scan_bound(case)})
+    check(all(r["ok"] for r in rows), f"mamba_scan disagrees with mamba_scan_ref: {rows}")
+
+    prefill = next(r for r in rows if r["case"] == "jamba_prefill")
+    ms_row = {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:91",
+        "max_abs_err": prefill["max_abs_err"],
+        "ms": prefill["ms"],
+        "plain_ms": prefill["plain_ms"],
+        "bound_ms": prefill["bound_ms"],
+        "bound_by": prefill["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a selective scan
+    }
+
+    # K1 at the jamba attention shape, beside torch's fused attention
+    q, k, v = _qkv(torch, dev, JAMBA_ATTN, seed=101)
+    kw = _kw(JAMBA_ATTN)
+    out, ref = fa.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
+    fa_err = (out.float() - ref.float()).abs().max().item()
+    fa_ok = bool(torch.allclose(out.float(), ref.float(), atol=TOL["bfloat16"], rtol=TOL["bfloat16"]))
+    lib = _sdpa(torch, q, k, v, JAMBA_ATTN)
+    fa_bound, fa_by, flops, _ = _bound_ms(JAMBA_ATTN)
+    jamba_fa = {
+        "max_abs_err": fa_err,
+        "ms": _cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+        "plain_ms": _cuda_ms(torch, lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
+        "library_ms": _cuda_ms(torch, lib),
+        "bound_ms": fa_bound,
+        "bound_by": fa_by,
+        "gflop": flops / 1e9,
+    }
+    emit("jamba_kernels", mamba_scan_cases=rows, flash_attention_jamba_shape=jamba_fa)
+    check(fa_ok, f"flash_attention disagrees with attention_ref at the jamba shape: {fa_err}")
+    del q, k, v, out, ref, args
+    torch.cuda.empty_cache()
+    return ms_row, jamba_fa
+
+
+def _jamba_cfg(dtype="bfloat16", **moe):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(JAMBA)
+    cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS, dtype=dtype, param_dtype=dtype)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
+def _first_repeat_fp32(tree: dict) -> dict:
+    return {k: _first_repeat_fp32(v) if isinstance(v, dict) else v[0].float() for k, v in tree.items()}
+
+
+def phase_jamba_prefill(torch, dev) -> dict:
+    """The bf16 main path, the fp32 mixer check and the profile, on one set of
+    bf16 params. Returns the kernels' launch counts of the main path."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.models.mamba import mamba_apply
+
+    cfg = _jamba_cfg()
+    n_mamba = sum(k == "mamba" for k, _ in cfg.pattern_unit())
+    n_attn = len(cfg.pattern_unit()) - n_mamba
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_gb = torch.cuda.memory_allocated() / 1e9
+        forward(cfg, params, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        lk, aux = forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lr, aux_r = forward(cfg, params, batch, impl="ref")
+        finite = bool(torch.isfinite(lk).all()) and bool(torch.isfinite(aux))
+        top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        err16 = (lk - lr).abs().max().item()
+        aux_k, aux_r = aux.item(), aux_r.item()
+        del lk, lr
+
+        # one full-width mixer in fp32 (layer 0's weights, upcast): kernel vs plain
+        mixer = _first_repeat_fp32(params["blocks"]["u0"]["mixer"])
+        cfg32 = _jamba_cfg("float32")
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal((1, PREFILL_S, cfg.d_model)),
+                            dtype=torch.float32, device=dev)
+        yk = mamba_apply(mixer, cfg32, x, impl="auto")
+        yr = mamba_apply(mixer, cfg32, x, impl="ref")
+        mix_err = (yk - yr).abs().max().item()
+        mix_scale = yr.abs().max().item()
+        del mixer, x, yk, yr
+
+        # profile: one prefill forward and 4 decode steps at batch 4
+        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch))
+        cache = init_cache(cfg, 4, 128)
+        tok = batch["tokens"][:, :1].repeat(2, 1)
+        decode_step(cfg, params, cache, tok, 0)  # warm-up
+
+        def four_steps():
+            for i in range(1, 5):
+                decode_step(cfg, params, cache, tok, i)
+
+        decode_prof = _profile(torch, four_steps)
+        del params, cache, batch
+        torch.cuda.empty_cache()
+    emit(
+        "jamba_prefill",
+        n_layers=cfg.n_layers, B=PREFILL_B, S=PREFILL_S, init_s=init_s, param_gb=param_gb,
+        launches=counts, bf16_top1_agreement=top1, bf16_logit_max_abs_err=err16,
+        aux_kernel=aux_k, aux_plain=aux_r,
+        prefill_s=prefill_s, prefill_tok_per_s=PREFILL_B * PREFILL_S / prefill_s,
+        peak_gb=peak_gb,
+        fp32_mixer_max_abs_err=mix_err, fp32_mixer_max_abs=mix_scale,
+        fp32_mixer_tol=f"max|diff| <= {MIXER_RTOL} * max|plain|",
+    )
+    emit("jamba_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof)
+    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn},
+          f"jamba forward launched {counts}, expected {n_mamba} scans and {n_attn} attention")
+    check(finite, "jamba bf16 logits or aux are not finite")
+    check(top1 >= TOP1_MIN, f"jamba bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
+    check(mix_err <= MIXER_RTOL * mix_scale,
+          f"fp32 mamba mixer kernel vs plain: {mix_err} > {MIXER_RTOL} * {mix_scale}")
+    return counts
+
+
+def phase_jamba_decode(torch, dev) -> None:
+    """fp32 model: 16 decode steps against forward over the same tokens, with
+    MoE capacity to spare (tests/test_models.py::test_decode_matches_forward)."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    cfg = _jamba_cfg("float32", capacity_factor=8.0)
+    S = 16
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, S)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=1)
+        full, _ = forward(cfg, params, {"tokens": tokens})
+        cache = init_cache(cfg, 1, 32)
+        steps = []
+        for i in range(S):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, i : i + 1], i)
+            steps.append(lg[:, 0])
+        dec = torch.stack(steps, dim=1)
+        err = (dec - full).abs().max().item()
+        ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2))
+        finite = bool(torch.isfinite(dec).all())
+        del params, cache, full, dec
+        torch.cuda.empty_cache()
+    emit("jamba_decode", n_layers=cfg.n_layers, steps=S, max_abs_err=err, tol="atol=rtol=2e-2",
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(finite and ok, f"jamba decode_step logits disagree with forward: max abs err {err}")
+
+
+def phase_jamba_serve(torch) -> None:
+    from repro_torch.launch.serve import serve
+
+    batch, steps = 4, 32
+    torch.cuda.reset_peak_memory_stats()
+    tps = serve(JAMBA, smoke=False, n_layers=JAMBA_LAYERS, batch=batch, steps=steps, max_len=128,
+                verbose=False)
+    torch.cuda.empty_cache()
+    emit("jamba_serve", n_layers=JAMBA_LAYERS, batch=batch, steps=steps, tok_per_s=tps,
+         ms_per_step=batch / tps * 1e3, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(tps > 0, "jamba serve returned no rate")
 
 
 if __name__ == "__main__":

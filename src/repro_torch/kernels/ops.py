@@ -16,9 +16,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as mamba_scan_kernel
+from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
 
-__all__ = ["attention", "resolve_impl"]
+__all__ = ["attention", "mamba_scan", "resolve_impl"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -44,3 +45,17 @@ def attention(
 ) -> torch.Tensor:
     fn = flash_attention if resolve_impl(impl, q) == "cuda" else attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+
+
+def mamba_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    fn = mamba_scan_kernel if resolve_impl(impl, x) == "cuda" else mamba_scan_ref
+    return fn(x, dt, A, B, C, D)

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "mamba_scan_ref"]
 
 
 def _attn_mask(
@@ -67,3 +67,29 @@ def attention_ref(
     probs = torch.where(mask.any(dim=-1)[:, None], probs, 0.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def mamba_scan_ref(
+    x: torch.Tensor,  # (B, T, Di)
+    dt: torch.Tensor,  # (B, T, Di), post-softplus
+    A: torch.Tensor,  # (Di, N), negative (continuous time)
+    B: torch.Tensor,  # (B, T, N)
+    C: torch.Tensor,  # (B, T, N)
+    D: torch.Tensor,  # (Di,)
+) -> torch.Tensor:
+    """Selective SSM scan (Mamba-1 semantics), sequential over T in fp32.
+
+    ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t``; ``y_t = C_t . h_t + D x_t``,
+    with ``D x`` added in fp32 before the one cast to ``x.dtype``.
+    """
+    Bsz, T, Di = x.shape
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = B.float(), C.float(), A.float()
+    h = torch.zeros((Bsz, Di, A.shape[1]), dtype=torch.float32, device=x.device)
+    ys = torch.empty((Bsz, T, Di), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])  # (B, Di, N)
+        dBx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys[:, t] = torch.einsum("bdn,bn->bd", h, Cf[:, t])
+    return (ys + xf * D.float()).to(x.dtype)

@@ -2,13 +2,17 @@
 
 ``python -m repro_torch.launch.serve --arch gemma3-1b --full`` serves the full
 config on the card; ``--smoke`` (the default) the reduced one. There is one
-card, so the reference's mesh and sharding arguments are dropped.
+card, so the reference's mesh and sharding arguments are dropped; a config
+too large for it is cut in depth instead, to whole pattern units
+(``--arch jamba-v0.1-52b --full --layers 8``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,18 +32,31 @@ def serve(
     device: DeviceLike = None,
     verbose: bool = True,
     production_mesh: bool = False,
+    n_layers: Optional[int] = None,
 ) -> float:
     """Decode ``steps`` greedy tokens for ``batch`` streams; returns tokens/s.
 
     The first step is warm-up and is not timed, as in the reference. Raises
     if the last step's logits are not finite.
+
+    ``n_layers`` replaces the config's depth and must be a multiple of its
+    pattern unit. It is the one-card stand-in for the reference's
+    ``production_mesh``, which shards a config that one device cannot hold
+    (jamba-v0.1-52b's 32 layers are ~103 GB in bf16; 8 layers fit one card).
     """
     if production_mesh:
         raise ValueError("production_mesh: the port serves on one card and has no mesh")
     if not 1 < steps <= max_len:
         raise ValueError(f"steps must be in (1, max_len={max_len}], got {steps}")
-    dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        unit = len(cfg.pattern_unit())
+        if n_layers < 1 or n_layers % unit:
+            raise ValueError(
+                f"n_layers={n_layers}: {cfg.name} is cut to whole pattern units of {unit} layers"
+            )
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = resolve_device(device)
 
     params = init_params(cfg, seed=seed, device=dev)
     cache = init_cache(cfg, batch, max_len, device=dev)
@@ -70,9 +87,12 @@ def main() -> None:
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (whole pattern units)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
-    serve(args.arch, smoke=args.smoke, batch=args.batch, steps=args.steps, device=args.device)
+    serve(args.arch, smoke=args.smoke, batch=args.batch, steps=args.steps, device=args.device,
+          n_layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,15 @@ the JAX package, so parameter trees convert one to one
 (:mod:`repro_torch.models.convert`). Where the reference scans the repeats,
 this runs a plain loop over them.
 
-Ported layer kinds: ATTN and LOCAL_ATTN with a dense MLP. The others raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Ported layer kinds: ATTN and LOCAL_ATTN (norm, attention), and MAMBA (the
+mixer, which carries its own norm), each followed by a dense MLP or an MoE
+sub-layer. MLSTM and SLSTM raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
 Entry points:
 * :func:`init_params`  — random parameters from a seeded ``torch.Generator``
 * :func:`forward`      — full-sequence (prefill / scoring) -> logits, aux
-* :func:`init_cache`   — per-layer KV cache, stacked like the params
+* :func:`init_cache`   — per-layer decode state (KV cache / SSM state), stacked like the params
 * :func:`decode_step`  — one token against the cache (updated in place)
 
 Each takes ``device=None``: the card unless the caller passes ``"cpu"``
@@ -30,6 +32,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from repro_torch.models.config import ArchConfig, LayerKind
 from repro_torch.models.layers import Params, apply_norm, embed_init, mlp_apply, mlp_init, norm_init
+from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init, mamba_state_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 __all__ = [
     "init_params",
@@ -40,23 +44,19 @@ __all__ = [
     "apply_unit",
 ]
 
-# layer kinds and features that wait for a later slice, by ROADMAP.md item
+# layer kinds that wait for a later slice, by ROADMAP.md item
 _UNPORTED_KINDS = {
-    LayerKind.MAMBA: "A.2 (jamba: mamba mixer and the mamba_scan kernel, K2)",
     LayerKind.MLSTM: "A.3 (xlstm: mLSTM block and the mlstm kernel, K3)",
     LayerKind.SLSTM: "A.3 (xlstm: sLSTM block)",
 }
+_ATTN_KINDS = (LayerKind.ATTN, LayerKind.LOCAL_ATTN)
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    for kind, is_moe in cfg.pattern_unit():
+    for kind, _ in cfg.pattern_unit():
         if kind in _UNPORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} is not ported yet; ROADMAP.md {_UNPORTED_KINDS[kind]}"
-            )
-        if is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet; ROADMAP.md A.4 (MoE path, gmm kernel K4)"
             )
     if cfg.encoder is not None or cfg.vision_tokens > 0:
         raise NotImplementedError(
@@ -85,27 +85,41 @@ def _index(tree: Params, r: int) -> Params:
 # ============================ initialization ===============================
 
 
+def _layer_init(
+    gen: torch.Generator, cfg: ArchConfig, kind: str, is_moe: bool, device: torch.device
+) -> Params:
+    """One unit position's params, stacked over the repeats (the reference's
+    layout: a mamba layer has no ``norm1``, its mixer carries its own norm)."""
+    dt = _dtype(cfg)
+    lead = (cfg.num_pattern_repeats,)
+    p: Params = {}
+    if kind in _ATTN_KINDS:
+        p["norm1"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
+        p["attn"] = attn_init(gen, cfg, dt, device, lead)
+    else:  # LayerKind.MAMBA; _check_ported has refused the rest
+        p["mixer"] = mamba_init(gen, cfg, dt, device, lead)
+    if is_moe:
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
+        p["moe"] = moe_init(gen, cfg, dt, device, lead)
+    elif cfg.d_ff > 0:
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt, device, lead)
+    return p
+
+
 def _init(cfg: ArchConfig, gen: torch.Generator, device: torch.device) -> Params:
     _check_ported(cfg)
     dt = _dtype(cfg)
-    lead = (cfg.num_pattern_repeats,)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dt, device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device)
-    blocks: Params = {}
-    for u, _ in enumerate(cfg.pattern_unit()):
-        p: Params = {
-            "norm1": norm_init(cfg.d_model, cfg.norm, dt, device, lead),
-            "attn": attn_init(gen, cfg, dt, device, lead),
-        }
-        if cfg.d_ff > 0:
-            p["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
-            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt, device, lead)
-        blocks[f"u{u}"] = p
-    params["blocks"] = blocks
+    params["blocks"] = {
+        f"u{u}": _layer_init(gen, cfg, kind, is_moe, device)
+        for u, (kind, is_moe) in enumerate(cfg.pattern_unit())
+    }
     return params
 
 
@@ -154,21 +168,35 @@ def _device_tokens(params: Params, tokens, device: torch.device) -> torch.Tensor
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
+def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP or MoE sub-layer (pre-norm, residual); the MoE's aux loss or None."""
+    if "moe" in p:
+        mo, aux = moe_apply(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm))
+        return x + mo, aux
+    if "mlp" in p:
+        x = x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.activation)
+    return x, None
+
+
 def apply_unit(
     cfg: ArchConfig,
     unit_params: Tuple[Params, ...],  # params per unit position (one repeat)
     x: torch.Tensor,
     *,
     impl: str = "auto",
-) -> torch.Tensor:
-    """One pattern unit of layers."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pattern unit of layers. Returns (x, the unit's summed MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _), p in zip(cfg.pattern_unit(), unit_params, strict=True):
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
-        if "mlp" in p:
-            h = apply_norm(p["norm2"], x, cfg.norm)
-            x = x + mlp_apply(p["mlp"], h, cfg.activation)
-    return x
+        if kind in _ATTN_KINDS:
+            h = apply_norm(p["norm1"], x, cfg.norm)
+            x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
+        else:
+            x = mamba_apply(p["mixer"], cfg, x, impl=impl)
+        x, a = _ffn(cfg, p, x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(
@@ -179,36 +207,42 @@ def forward(
     impl: str = "auto",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, V) fp32, aux loss 0)."""
+    """Full-sequence forward. Returns (logits (B, S, V) fp32, summed MoE aux loss)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     tokens = _device_tokens(params, batch["tokens"], dev)
     x = _embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     n_units = len(cfg.pattern_unit())
     for r in range(cfg.num_pattern_repeats):
         unit = tuple(_index(params["blocks"][f"u{u}"], r) for u in range(n_units))
-        x = apply_unit(cfg, unit, x, impl=impl)
+        x, a = apply_unit(cfg, unit, x, impl=impl)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=dev)
+    return _logits(cfg, params, x), aux
 
 
 # ============================== decode =====================================
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device: DeviceLike = None) -> Params:
-    """KV cache stacked per unit position (mirrors the param layout).
+    """Decode state stacked per unit position (mirrors the param layout).
 
-    Sliding-window layers only ever need ``min(max_len, window)`` slots.
+    Attention layers get a KV cache; sliding-window ones only ever need
+    ``min(max_len, window)`` slots. Mamba layers get their fp32 SSM state
+    ``h`` (B, Di, N) and conv window (B, d_conv - 1, Di).
     """
     _check_ported(cfg)
     dev = resolve_device(device)
+    lead = (cfg.num_pattern_repeats,)
     cache: Params = {}
     for u, (kind, _) in enumerate(cfg.pattern_unit()):
+        if kind not in _ATTN_KINDS:
+            cache[f"u{u}"] = mamba_state_init(cfg, batch, _dtype(cfg), dev, lead)
+            continue
         window = _window(cfg, kind)
         L = max_len if window is None else min(max_len, window)
-        cache[f"u{u}"] = init_kv_cache(
-            cfg, batch, L, _dtype(cfg), dev, lead=(cfg.num_pattern_repeats,)
-        )
+        cache[f"u{u}"] = init_kv_cache(cfg, batch, L, _dtype(cfg), dev, lead=lead)
     return cache
 
 
@@ -223,8 +257,9 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step; returns (logits (B, 1, V) fp32, the cache updated in place).
 
-    Attention against the cache is plain torch (``_decode_attention``), as in
-    the reference, which reaches no kernel here either.
+    Attention against the cache and the one-token mamba step are plain torch,
+    as in the reference, which reaches no kernel here either. The MoE runs
+    its dispatch over the batch's B tokens.
     """
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -235,16 +270,17 @@ def decode_step(
         for u, (kind, _) in enumerate(unit):
             p = _index(params["blocks"][f"u{u}"], r)
             st = _index(cache[f"u{u}"], r)
-            window = _window(cfg, kind)
-            L = st["k"].shape[1]
-            is_ring = window is not None and L == window
-            write_idx = index % L if is_ring else min(index, L - 1)
-            fill_len = min(index + 1, L)
-            h = apply_norm(p["norm1"], x, cfg.norm)
-            a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
-            x = x + a
-            if "mlp" in p:
-                h = apply_norm(p["norm2"], x, cfg.norm)
-                x = x + mlp_apply(p["mlp"], h, cfg.activation)
+            if kind in _ATTN_KINDS:
+                window = _window(cfg, kind)
+                L = st["k"].shape[1]
+                is_ring = window is not None and L == window
+                write_idx = index % L if is_ring else min(index, L - 1)
+                fill_len = min(index + 1, L)
+                h = apply_norm(p["norm1"], x, cfg.norm)
+                a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
+                x = x + a
+            else:
+                x, _ = mamba_decode(p["mixer"], cfg, x, st)
+            x, _ = _ffn(cfg, p, x)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(cfg, params, x), cache

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 card; this file imports no JAX, so it runs where the card is:
@@ -10,8 +10,9 @@ import pytest
 import torch
 
 import repro_torch.kernels.flash_attention as fa
+import repro_torch.kernels.mamba_scan as ms
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +89,82 @@ def test_kernel_rejects_what_it_does_not_take(card):
         fa.flash_attention(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         fa.flash_attention(q.cpu(), k, v)
+
+
+# tests/test_kernels.py MAMBA_CASES (B, T, Di, N; the Pallas block sizes do not
+# apply), then ragged T and Di, then the mixer's layout: B and C strided slices
+# of one projection in x's dtype
+MAMBA_CASES = [
+    (2, 128, 256, 16, "float32", "float32"),
+    (1, 256, 512, 16, "float32", "float32"),
+    (2, 64, 128, 8, "float32", "float32"),
+    (1, 128, 256, 16, "bfloat16", "float32"),
+    (2, 77, 200, 16, "float32", "float32"),
+    (3, 45, 72, 16, "bfloat16", "bfloat16"),
+]
+# the tolerances of tests/test_kernels.py::test_mamba_scan_matches_oracle
+MAMBA_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _mamba_inputs(card, case, seed=0, strided_bc=False):
+    """The inputs of tests/test_kernels.py: dt = softplus(n) * 0.1, A = -exp(0.5 n)."""
+    Bsz, T, Di, N, xdt, bcdt = case
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dtype="float32"):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            card, getattr(torch, dtype))
+
+    x = t(Bsz, T, Di, dtype=xdt)
+    dt = (torch.nn.functional.softplus(t(Bsz, T, Di)) * 0.1).to(x.dtype)
+    A = -torch.exp(t(Di, N) * 0.5)
+    if strided_bc:
+        bc = t(Bsz, T, 3 + 2 * N, dtype=bcdt)
+        Bm, Cm = bc[..., 3 : 3 + N], bc[..., 3 + N :]
+    else:
+        Bm, Cm = t(Bsz, T, N, dtype=bcdt), t(Bsz, T, N, dtype=bcdt)
+    return x, dt, A, Bm, Cm, t(Di)
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES, ids=[f"case{i}" for i in range(len(MAMBA_CASES))])
+def test_mamba_kernel_matches_plain_version(card, case):
+    args = _mamba_inputs(card, case, strided_bc=case == MAMBA_CASES[-1])
+    out = ms.mamba_scan(*args)
+    ref = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    tol = MAMBA_TOL[case[4]]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("n_state", [3, 8, 16, 32, ms.MAX_STATES])
+def test_mamba_kernel_every_state_count(card, n_state):
+    """Each count of states a lane holds (1, 2, 4, 8, 16 over 4 lanes), padded
+    where N is not a multiple of 4, gives the plain version's scan."""
+    args = _mamba_inputs(card, (2, 40, 96, n_state, "float32", "float32"), seed=2)
+    out = ms.mamba_scan(*args)
+    torch.testing.assert_close(out, mamba_scan_ref(*args), atol=2e-4, rtol=2e-4)
+
+
+def test_mamba_auto_on_card_launches_the_kernel(card):
+    args = _mamba_inputs(card, MAMBA_CASES[2])
+    before = ms.LAUNCHES
+    ops.mamba_scan(*args, impl="auto")
+    assert ms.LAUNCHES == before + 1
+
+
+def test_mamba_kernel_rejects_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm, D = _mamba_inputs(card, MAMBA_CASES[2])
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ms.mamba_scan(x.cpu(), dt, A, Bm, Cm, D)
+    with pytest.raises(TypeError, match="float16"):
+        ms.mamba_scan(x.half(), dt.half(), A, Bm, Cm, D)
+    with pytest.raises(TypeError, match="A and D must be float32"):
+        ms.mamba_scan(x, dt, A.double(), Bm, Cm, D)
+    with pytest.raises(ValueError, match="B is"):
+        ms.mamba_scan(x, dt, A, Bm[:, :-1], Cm, D)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        ms.mamba_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, D)
+    x, dt, A, Bm, Cm, D = _mamba_inputs(card, (1, 8, 64, ms.MAX_STATES + 1, "float32", "float32"))
+    with pytest.raises(ValueError, match="states"):
+        ms.mamba_scan(x, dt, A, Bm, Cm, D)

@@ -1,9 +1,10 @@
-"""The port's attention (repro_torch.kernels) against the JAX package's, on the CPU.
+"""The port's kernels' plain versions (repro_torch.kernels) against the JAX package's, on the CPU.
 
 The JAX side runs its oracle and its Pallas kernel in interpret mode, as
 tests/test_kernels.py does; the port's side runs its plain version, which is
-what ``ops.attention`` picks for CPU tensors. The CUDA kernel itself is held
-against the plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+what ``ops.attention`` and ``ops.mamba_scan`` pick for CPU tensors. The CUDA
+kernels themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import os
@@ -16,10 +17,13 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan
 from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
 import repro_torch.kernels.flash_attention as fa
+import repro_torch.kernels.mamba_scan as ms
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
 
 # tests/test_kernels.py ATTN_CASES: B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset, dtype
 ATTN_CASES = [
@@ -118,6 +122,7 @@ def test_kernel_modules_import_without_nvcc():
     env = {**os.environ, "PATH": "", "CUDA_HOME": "/nonexistent"}
     code = (
         "import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.mamba_scan\n"
         "from repro_torch.kernels import _build\n"
         "try:\n"
         "    _build.build_all()\n"
@@ -129,3 +134,69 @@ def test_kernel_modules_import_without_nvcc():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# tests/test_kernels.py MAMBA_CASES: B, T, Di, N, Pallas block_channels, chunk, dtype
+MAMBA_CASES = [
+    (2, 128, 256, 16, 128, 64, "float32"),
+    (1, 256, 512, 16, 256, 128, "float32"),
+    (2, 64, 128, 8, 128, 64, "float32"),
+    (1, 128, 256, 16, 128, 128, "bfloat16"),
+]
+# the tolerances of tests/test_kernels.py::test_mamba_scan_matches_oracle: both
+# sides scan in fp32; bf16 rounds x, dt and y
+MAMBA_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _mamba_arrays(case, seed=0):
+    """The inputs of tests/test_kernels.py, made with numpy: x, dt = softplus(n) * 0.1,
+    A = -exp(0.5 n), and B, C, D in fp32."""
+    B, T, Di, N = case[:4]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, Di)).astype(np.float32)
+    dt = (np.logaddexp(rng.standard_normal((B, T, Di)), 0.0) * 0.1).astype(np.float32)
+    A = -np.exp(rng.standard_normal((Di, N)) * 0.5).astype(np.float32)
+    rest = [rng.standard_normal(s).astype(np.float32) for s in ((B, T, N), (B, T, N), (Di,))]
+    return [x, dt, A, *rest]
+
+
+def _mamba_port(arrays, dtype):
+    x, dt, *rest = (torch.from_numpy(a) for a in arrays)
+    return [x.to(getattr(torch, dtype)), dt.to(getattr(torch, dtype)), *rest]
+
+
+def _mamba_jax(arrays, dtype):
+    x, dt, *rest = (jnp.asarray(a) for a in arrays)
+    return [x.astype(getattr(jnp, dtype)), dt.astype(getattr(jnp, dtype)), *rest]
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES, ids=[f"case{i}" for i in range(len(MAMBA_CASES))])
+def test_mamba_scan_ref_matches_jax(case):
+    dtype = case[-1]
+    arrays = _mamba_arrays(case)
+    port = mamba_scan_ref(*_mamba_port(arrays, dtype))
+    assert port.dtype == getattr(torch, dtype)
+    jref = jax_mamba_scan_ref(*_mamba_jax(arrays, dtype))
+    jker = jax_mamba_scan(*_mamba_jax(arrays, dtype), block_channels=case[4], chunk=case[5],
+                          interpret=True)
+    tol = MAMBA_TOL[dtype]
+    np.testing.assert_allclose(_f32(port), _f32(jref), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(port), _f32(jker), atol=tol, rtol=tol)
+
+
+def test_mamba_ops_auto_on_cpu_takes_ref():
+    args = _mamba_port(_mamba_arrays(MAMBA_CASES[2]), "float32")
+    before = ms.LAUNCHES
+    out = ops.mamba_scan(*args, impl="auto")
+    assert ms.LAUNCHES == before
+    assert torch.equal(out, mamba_scan_ref(*args))
+
+
+def test_mamba_ops_cuda_on_cpu_raises():
+    args = _mamba_port(_mamba_arrays(MAMBA_CASES[2]), "float32")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ops.mamba_scan(*args, impl="cuda")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ms.mamba_scan(*args)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.mamba_scan(*args, impl="interpret")
