@@ -32,6 +32,21 @@ Then the jamba-v0.1-52b path, full width, cut to one 8-layer pattern unit:
 10. jamba_decode — fp32 model, 16 ``decode_step``s against ``forward``.
 11. jamba_serve — ``serve("jamba_v01_52b", smoke=False, n_layers=8, ...)``.
 
+Then the xlstm-350m path, full width and full depth (21 mLSTM, 3 sLSTM):
+
+12. xlstm_kernels — the chunkwise mLSTM kernel against its plain version
+              (the chunked scan): the cases of tests/test_kernels.py, the
+              prefill shape and a ragged T, in fp32 and bf16; kernel, plain
+              and bound times.
+13. xlstm_prefill — bf16 ``forward`` on B=2, S=2048 (launch counts: 21
+              mLSTM kernels, top-1 agreement with the plain path, tokens/s,
+              peak memory); one fp32 mLSTM block, kernel vs plain.
+14. xlstm_profile — torch.profiler over one bf16 prefill and 4 decode
+              steps, and the sLSTM time loop's share of the prefill's wall
+              time, timed on its own.
+15. xlstm_decode — fp32 model, 16 ``decode_step``s against ``forward``.
+16. xlstm_serve — ``serve("xlstm_350m", smoke=False, batch=4, steps=32)``.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -100,6 +115,23 @@ JAMBA_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, None, None, 0, 
 # the mamba mixer in fp32, kernel vs plain: max |diff| <= MIXER_RTOL * max |plain|
 MIXER_RTOL = 2e-4
 
+# xlstm-350m at full width and depth: 3 repeats of (mLSTM x7, sLSTM)
+XLSTM = "xlstm_350m"
+# the chunkwise mLSTM: tests/test_kernels.py MLSTM_CASES (B, T, H, D), the
+# prefill shape (H 4, D 512) and a ragged T (1000 = 15 * 64 + 40, masked in
+# the kernel's last chunk). The plain version is the chunked scan at the
+# kernel's own chunk or, for the ragged T, at the largest chunk below it that
+# divides T (50); the quadratic oracle, which sums the gates over the whole
+# sequence, holds the kernel's ragged T at short T only (tests/test_torch_cuda.py)
+MLSTM_CASES = [(2, 128, 2, 64), (1, 256, 4, 64), (1, 128, 1, 128)]
+MLSTM_PREFILL = (PREFILL_B, PREFILL_S, 4, 512)
+MLSTM_RAGGED = (2, 1000, 4, 512)
+# max |a - b| / (|b| + 1e-2): fp32 the bar of tests/test_kernels.py; bf16 one
+# bf16 ulp of the output (2^-7 relative) on top
+MLSTM_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
+# one fp32 mLSTM block, kernel vs plain: max |diff| <= BLOCK_RTOL * max |plain|
+BLOCK_RTOL = 1e-4
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -137,6 +169,10 @@ def main() -> int:
     launches = phase_jamba_prefill(torch, dev)
     phase_jamba_decode(torch, dev)
     phase_jamba_serve(torch)
+    ml_row = phase_xlstm_kernels(torch, dev)
+    ml_row["launches"] = phase_xlstm_prefill(torch, dev)["mlstm"]
+    phase_xlstm_decode(torch, dev)
+    phase_xlstm_serve(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     # flash attention's row keeps its first path's numbers (gemma3-1b, per launch
@@ -147,7 +183,7 @@ def main() -> int:
     fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa}
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [fa_row, ms_row]}), flush=True)
+    print(json.dumps({"kernels": [fa_row, ms_row, ml_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -161,15 +197,17 @@ def _reset_counts():
     """Every kernel's launch count to 0, just before a main path is driven."""
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.mamba_scan as ms
+    import repro_torch.kernels.mlstm as ml
 
-    fa.LAUNCHES = ms.LAUNCHES = 0
+    fa.LAUNCHES = ms.LAUNCHES = ml.LAUNCHES = 0
 
 
 def _counts() -> dict:
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.mamba_scan as ms
+    import repro_torch.kernels.mlstm as ml
 
-    return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES}
+    return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES, "mlstm": ml.LAUNCHES}
 
 
 def phase_device(torch) -> str:
@@ -339,7 +377,8 @@ def phase_prefill(torch, dev) -> dict:
         del lk, lr, params
         torch.cuda.empty_cache()
     check(launches == cfg.n_layers, f"bf16 forward launched the kernel {launches} times, not 26")
-    check(counts["mamba_scan"] == 0, f"gemma3-1b forward launched mamba_scan: {counts}")
+    check(counts["mamba_scan"] == counts["mlstm"] == 0,
+          f"gemma3-1b forward launched another kernel than flash attention: {counts}")
     check(finite, "bf16 logits are not finite")
     check(top1 >= TOP1_MIN, f"bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
 
@@ -412,9 +451,11 @@ def phase_decode(torch, dev) -> None:
     check(ok, f"decode_step logits disagree with forward: max abs err {err}")
 
 
-def _profile(torch, fn, top=8) -> dict:
+def _profile(torch, fn, top=8, groups=None) -> dict:
     """Device time by kernel over one call of ``fn``, and the device's idle share
-    of the call's wall time (torch.profiler; null where it saw no device time)."""
+    of the call's wall time (torch.profiler; null where it saw no device time).
+    ``groups`` maps a label to name fragments: the device time of every kernel
+    whose name holds one of them is summed under ``group_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -435,6 +476,8 @@ def _profile(torch, fn, top=8) -> dict:
         "kernels": len(rows),
         "launches": sum(r[1] for r in rows),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n} for ms, n, k in rows[:top]],
+        **({"group_ms": {label: sum(ms for ms, _, k in rows if any(f in k for f in frags))
+                         for label, frags in groups.items()}} if groups else {}),
     }
 
 
@@ -656,7 +699,7 @@ def phase_jamba_prefill(torch, dev) -> dict:
         fp32_mixer_tol=f"max|diff| <= {MIXER_RTOL} * max|plain|",
     )
     emit("jamba_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof)
-    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn},
+    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn, "mlstm": 0},
           f"jamba forward launched {counts}, expected {n_mamba} scans and {n_attn} attention")
     check(finite, "jamba bf16 logits or aux are not finite")
     check(top1 >= TOP1_MIN, f"jamba bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
@@ -704,6 +747,273 @@ def phase_jamba_serve(torch) -> None:
     emit("jamba_serve", n_layers=JAMBA_LAYERS, batch=batch, steps=steps, tok_per_s=tps,
          ms_per_step=batch / tps * 1e3, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "jamba serve returned no rate")
+
+
+# ------------------------------ xlstm phases ---------------------------------
+
+
+def _mlstm_inputs(torch, dev, B, T, H, D, dtype, seed):
+    """The inputs of tests/test_kernels.py: q, k, v ~ N(0, 1) in ``dtype``,
+    fp32 gates i ~ N(0, 1) and f ~ N(2, 2)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0, dt="float32"):
+        a = (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+        return torch.from_numpy(a).to(dev, getattr(torch, dt))
+
+    qkv = [t(B, T, H, D, dt=dtype) for _ in range(3)]
+    return (*qkv, t(B, T, H), t(B, T, H, scale=2.0, shift=2.0))
+
+
+def _mlstm_bound(B, T, H, D, dtype, L):
+    """Least time of one call at chunk L: per chunk and sequence 2*L*L*D FLOP
+    for q k^T, 2*L*L*D for the weights times v, 2*L*D*D for q C and 2*L*D*D
+    for the k^T v update of C, at the peak rate for the input type (bf16 at
+    the tensor rate, fp32 on the CUDA cores); q, k, v read once and the
+    output written once in that type, the two fp32 gates read once."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    nc = -(-T // L)
+    flops = nc * B * H * (4 * L * L * D + 4 * L * D * D)
+    nbytes = 4 * B * T * H * D * itemsize + 2 * B * T * H * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def _mlstm_rel(out, ref) -> float:
+    """max |a - b| / (|b| + 1e-2), the form of tests/test_kernels.py."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() / (ref.abs() + 1e-2)).max().item()
+
+
+def phase_xlstm_kernels(torch, dev) -> dict:
+    """K3 against its plain version on every case, with kernel, plain and bound times."""
+    import repro_torch.kernels.mlstm as ml
+    from repro_torch.kernels.ref import mlstm_chunked_scan
+
+    cases = [(f"mlstm_case_{i}", c) for i, c in enumerate(MLSTM_CASES)]
+    cases += [("xlstm_prefill", MLSTM_PREFILL), ("ragged", MLSTM_RAGGED)]
+    rows = []
+    seed = 0
+    for name, (B, T, H, D) in cases:
+        for dtype in ("float32", "bfloat16"):
+            seed += 1
+            args = _mlstm_inputs(torch, dev, B, T, H, D, dtype, seed)
+            chunk = max(c for c in range(1, ml.CHUNK + 1) if T % c == 0)
+            plain = lambda a=args, c=chunk: mlstm_chunked_scan(*a, chunk=c)  # noqa: E731
+            out, ref = ml.mlstm_chunkwise(*args), plain()
+            torch.cuda.synchronize()
+            rel = _mlstm_rel(out, ref)
+            if name == "xlstm_prefill" and dtype == "float32":
+                # accuracy against an fp64 evaluation: the kernel's, and the
+                # plain version's at its chunk and at the model's plain chunk
+                exact = mlstm_chunked_scan(*args, chunk=chunk, dtype=torch.float64)
+                fp64 = {"kernel": _mlstm_rel(out, exact), f"plain_chunk_{chunk}": _mlstm_rel(ref, exact),
+                        "plain_chunk_256": _mlstm_rel(mlstm_chunked_scan(*args, chunk=256), exact)}
+                del exact
+            rows.append({
+                "case": name, "shape": (B, T, H, D), "dtype": dtype,
+                "plain_chunk": chunk,
+                "rel_err": rel, "tol": MLSTM_TOL[dtype], "ok": rel < MLSTM_TOL[dtype],
+                "finite": bool(torch.isfinite(out).all()),
+                "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                "max_abs": ref.float().abs().max().item(),
+                "ms": _cuda_ms(torch, lambda a=args: ml.mlstm_chunkwise(*a)),
+                "plain_ms": _cuda_ms(torch, plain, iters=5, warmup=1),
+                **_mlstm_bound(B, T, H, D, dtype, ml.CHUNK),
+            })
+            del args, out, ref
+    emit("xlstm_kernels", kernel_chunk=ml.CHUNK, mlstm_cases=rows,
+         tol="max|a-b|/(|b|+1e-2)", prefill_fp32_rel_err_vs_fp64=fp64)
+    check(all(r["ok"] and r["finite"] for r in rows), f"mlstm_chunkwise disagrees with its plain version: {rows}")
+    torch.cuda.empty_cache()
+    prefill = next(r for r in rows if r["case"] == "xlstm_prefill" and r["dtype"] == "bfloat16")
+    return {
+        "name": "mlstm_chunkwise",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm.py:137",
+        "max_abs_err": prefill["max_abs_err"],
+        "ms": prefill["ms"],
+        "plain_ms": prefill["plain_ms"],
+        "bound_ms": prefill["bound_ms"],
+        "bound_by": prefill["bound_by"],
+        "library_ms": None,  # no PyTorch call computes the chunkwise mLSTM
+    }
+
+
+def _xlstm_cfg(dtype="bfloat16"):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(XLSTM), dtype=dtype, param_dtype=dtype)
+
+
+def _slstm_loop_ms(torch, cfg, params, batch) -> list:
+    """Wall time (ms) of each sLSTM layer's time loop alone, on the gates that
+    the prefill gives it (host clock, synchronised around the loop)."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import _embed, _index
+
+    x = _embed(cfg, params, batch["tokens"])
+    loops = []
+    for r in range(cfg.num_pattern_repeats):
+        for u, (kind, _) in enumerate(cfg.pattern_unit()):
+            p = _index(params["blocks"][f"u{u}"], r)["block"]
+            if kind != "slstm":
+                x = xlstm.mlstm_block_apply(p, cfg, x)
+                continue
+            h = apply_norm(p["norm"], x, cfg.norm)
+            xc = torch.nn.functional.silu(xlstm._causal_conv(p["conv"], h))
+            gates, R = xlstm._slstm_gates(p, h, xc), xlstm._recurrent(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xlstm._slstm_scan(R, gates)
+            torch.cuda.synchronize()
+            loops.append((time.perf_counter() - t0) * 1e3)
+            x = xlstm.slstm_block_apply(p, cfg, x)
+    return loops
+
+
+# the four launches of one K3 call, as the profiler names them
+_K3_KERNELS = ("gates_kernel", "states_kernel", "scores_kernel", "output_kernel")
+
+
+def phase_xlstm_prefill(torch, dev) -> dict:
+    """The bf16 main path, the fp32 mLSTM block check, the profile and the
+    sLSTM loop's share, on one set of bf16 params. Returns the main path's
+    launch counts."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.models.xlstm import mlstm_block_apply
+
+    cfg = _xlstm_cfg()
+    n_mlstm = sum(k == "mlstm" for k in cfg.layer_kinds())
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        param_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+        n_params = sum(t.numel() for t in _leaves(params))
+        forward(cfg, params, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        lk, _ = forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lr, _ = forward(cfg, params, batch, impl="ref")
+        finite = bool(torch.isfinite(lk).all())
+        top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        err16 = (lk - lr).abs().max().item()
+        del lk, lr
+
+        # one full-width mLSTM block in fp32 (layer 0's weights, upcast): kernel vs plain
+        block = _first_repeat_fp32(params["blocks"]["u0"]["block"])
+        cfg32 = _xlstm_cfg("float32")
+        x = torch.as_tensor(np.random.default_rng(7).standard_normal((1, PREFILL_S, cfg.d_model)),
+                            dtype=torch.float32, device=dev)
+        yk = mlstm_block_apply(block, cfg32, x, impl="auto")
+        yr = mlstm_block_apply(block, cfg32, x, impl="ref")
+        blk_err = (yk - yr).abs().max().item()
+        blk_scale = yr.abs().max().item()
+        del block, x, yk, yr
+
+        # where the time goes: one profiled prefill, 4 decode steps at batch 4,
+        # and the sLSTM loops alone against an unprofiled forward
+        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), top=12,
+                                groups={"mlstm_chunkwise": _K3_KERNELS})
+        cache = init_cache(cfg, 4, 128)
+        tok = batch["tokens"][:, :1].repeat(2, 1)
+        decode_step(cfg, params, cache, tok, 0)  # warm-up
+
+        def four_steps():
+            for i in range(1, 5):
+                decode_step(cfg, params, cache, tok, i)
+
+        decode_prof = _profile(torch, four_steps, top=12)
+        # host-clock times spread between runs on a shared host: medians of 3
+        forward_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t0) * 1e3)
+        loops = np.median([_slstm_loop_ms(torch, cfg, params, batch) for _ in range(3)], axis=0)
+        del params, cache, batch
+        torch.cuda.empty_cache()
+    emit(
+        "xlstm_prefill",
+        n_layers=cfg.n_layers, n_params=n_params, B=PREFILL_B, S=PREFILL_S, param_gb=param_gb,
+        launches=counts, bf16_top1_agreement=top1, bf16_logit_max_abs_err=err16,
+        prefill_s=prefill_s, prefill_tok_per_s=PREFILL_B * PREFILL_S / prefill_s, peak_gb=peak_gb,
+        fp32_block_max_abs_err=blk_err, fp32_block_max_abs=blk_scale,
+        fp32_block_tol=f"max|diff| <= {BLOCK_RTOL} * max|plain|",
+    )
+    k3_ms = prefill_prof["group_ms"]["mlstm_chunkwise"]
+    busy = prefill_prof["device_busy_ms"]
+    emit("xlstm_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof,
+         k3_device_ms=k3_ms, k3_share_of_busy=k3_ms / busy if busy else None,
+         forward_ms=forward_ms, slstm_loop_ms=loops.tolist(), slstm_steps=PREFILL_S,
+         slstm_loop_share_of_wall=float(loops.sum() / np.median(forward_ms)))
+    check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0},
+          f"xlstm forward launched {counts}, expected {n_mlstm} mLSTM kernels and no other")
+    check(finite, "xlstm bf16 logits are not finite")
+    check(top1 >= TOP1_MIN, f"xlstm bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
+    check(blk_err <= BLOCK_RTOL * blk_scale,
+          f"fp32 mLSTM block kernel vs plain: {blk_err} > {BLOCK_RTOL} * {blk_scale}")
+    return counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_xlstm_decode(torch, dev) -> None:
+    """fp32 model: 16 decode steps against forward over the same tokens
+    (tests/test_models.py::test_decode_matches_forward)."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    cfg = _xlstm_cfg("float32")
+    S = 16
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, S)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=1)
+        full, _ = forward(cfg, params, {"tokens": tokens})
+        cache = init_cache(cfg, 1, 32)
+        steps = []
+        for i in range(S):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, i : i + 1], i)
+            steps.append(lg[:, 0])
+        dec = torch.stack(steps, dim=1)
+        err = (dec - full).abs().max().item()
+        ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2))
+        finite = bool(torch.isfinite(dec).all())
+        del params, cache, full, dec
+        torch.cuda.empty_cache()
+    emit("xlstm_decode", n_layers=cfg.n_layers, steps=S, max_abs_err=err, tol="atol=rtol=2e-2",
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(finite and ok, f"xlstm decode_step logits disagree with forward: max abs err {err}")
+
+
+def phase_xlstm_serve(torch) -> None:
+    from repro_torch.launch.serve import serve
+
+    batch, steps = 4, 32
+    torch.cuda.reset_peak_memory_stats()
+    tps = serve(XLSTM, smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
+    torch.cuda.empty_cache()
+    emit("xlstm_serve", n_layers=_xlstm_cfg().n_layers, batch=batch, steps=steps, tok_per_s=tps,
+         ms_per_step=batch / tps * 1e3, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(tps > 0, "xlstm serve returned no rate")
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
 * :mod:`repro_torch.kernels.ref`             — plain PyTorch versions (CPU path, oracle)
 * :mod:`repro_torch.kernels.flash_attention` — wrapper of ``csrc/flash_attention.cu``
 * :mod:`repro_torch.kernels.mamba_scan`      — wrapper of ``csrc/mamba_scan.cu``
+* :mod:`repro_torch.kernels.mlstm`           — wrapper of ``csrc/mlstm.cu``
 * :mod:`repro_torch.kernels.ops`             — ``impl`` dispatch ("auto" | "cuda" | "ref")
 * :mod:`repro_torch.kernels._build`          — nvcc build of ``csrc/*.cu``, loaded with ctypes
 

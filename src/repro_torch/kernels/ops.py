@@ -17,9 +17,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan as mamba_scan_kernel
-from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
+from repro_torch.kernels.mlstm import mlstm_chunkwise
+from repro_torch.kernels.ref import attention_ref, mamba_scan_ref, mlstm_chunked_scan
 
-__all__ = ["attention", "mamba_scan", "resolve_impl"]
+__all__ = ["attention", "mamba_scan", "mlstm", "resolve_impl"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -59,3 +60,20 @@ def mamba_scan(
 ) -> torch.Tensor:
     fn = mamba_scan_kernel if resolve_impl(impl, x) == "cuda" else mamba_scan_ref
     return fn(x, dt, A, B, C, D)
+
+
+def mlstm(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,
+    f_gate: torch.Tensor,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Chunkwise mLSTM. ``"ref"`` is the chunked scan with ``chunk=min(256, T)``,
+    as the reference's ``"ref"`` (T must be a multiple of it); the kernel
+    takes its own chunk length and any T."""
+    if resolve_impl(impl, q) == "cuda":
+        return mlstm_chunkwise(q, k, v, i_gate, f_gate)
+    return mlstm_chunked_scan(q, k, v, i_gate, f_gate, chunk=min(256, q.shape[1]))

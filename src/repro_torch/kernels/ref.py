@@ -11,8 +11,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["attention_ref", "mamba_scan_ref"]
+__all__ = ["attention_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan"]
+
+#: the finite stand-in for -inf of the mLSTM stabiliser (empty state, causal
+#: mask): with -inf, ``b + m_prev - m_comb`` would give NaN
+NEG_INF = -1e30
 
 
 def _attn_mask(
@@ -93,3 +98,107 @@ def mamba_scan_ref(
         h = dA * h + dBx
         ys[:, t] = torch.einsum("bdn,bn->bd", h, Cf[:, t])
     return (ys + xf * D.float()).to(x.dtype)
+
+
+def mlstm_chunkwise_ref(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, T, H, D)
+    v: torch.Tensor,  # (B, T, H, D)
+    i_gate: torch.Tensor,  # (B, T, H) pre-activation (exponential gate)
+    f_gate: torch.Tensor,  # (B, T, H) pre-activation (through logsigmoid)
+) -> torch.Tensor:
+    """mLSTM with matrix memory and exponential gating, quadratic in T: the oracle.
+
+    Per head: ``F_t = cumsum(logsigmoid(f))``, ``D_ts = F_t - F_s + i_s`` for
+    ``s <= t``, ``m_t = max_s D_ts``;
+    ``out_t = sum_s e^{D_ts - m_t} (q_t . k_s / sqrt(D)) v_s / den_t`` with
+    ``den_t = max(|sum_s e^{D_ts - m_t} q_t . k_s / sqrt(D)|, e^{-m_t})``.
+    fp32 inside, output in ``q.dtype``.
+    """
+    B, T, H, D = q.shape
+    qf = q.float()
+    kf = k.float() / math.sqrt(D)
+    vf = v.float()
+    lf = F.logsigmoid(f_gate.float())  # (B, T, H)
+    F_ = torch.cumsum(lf, dim=1)
+    Dmat = F_[:, :, None, :] - F_[:, None, :, :] + i_gate.float()[:, None, :, :]  # (B, T, S, H)
+    Dmat = Dmat.permute(0, 3, 1, 2)  # (B, H, T, S)
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
+    Dmat = Dmat.masked_fill(~causal, float("-inf"))
+    m = torch.clamp_min(torch.amax(Dmat, dim=-1, keepdim=True), NEG_INF)  # s = t is never masked
+    Dexp = torch.exp(Dmat - m)
+    scores = torch.einsum("bthd,bshd->bhts", qf, kf)
+    w = scores * Dexp
+    num = torch.einsum("bhts,bshd->bthd", w, vf)
+    den = torch.maximum(torch.abs(torch.sum(w, dim=-1)), torch.exp(-m[..., 0]))  # (B, H, T)
+    return (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def mlstm_chunked_scan(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,  # (B, T, H)
+    f_gate: torch.Tensor,  # (B, T, H)
+    chunk: int = 256,
+    *,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Chunkwise mLSTM, a loop over chunks of ``L = min(chunk, T)`` with a
+    ``(B, H, D, D)`` fp32 carry: O(T * L) memory, the model's plain path.
+
+    Per chunk: a causal, gate-decayed ``L x L`` product of q and k applied to
+    v, plus the carried state's term ``q C``, over the stabilised
+    denominator; then the state ``(C, n, m)`` is updated. Mathematically the
+    same as :func:`mlstm_chunkwise_ref`. fp32 inside (``dtype``: float64 gives
+    an accuracy reference), output in ``q.dtype``.
+    """
+    B, T, H, D = q.shape
+    L = min(chunk, T)
+    if T % L:
+        raise ValueError(f"mlstm_chunked_scan: T={T} is not a multiple of the chunk {L}")
+    nc = T // L
+    scale = 1.0 / math.sqrt(D)
+
+    def rs(x: torch.Tensor) -> torch.Tensor:  # (B, T, H, *) -> (nc, B, H, L, *)
+        x = x.reshape(B, nc, L, H, *x.shape[3:])
+        return x.movedim(1, 0).transpose(2, 3)
+
+    qf = rs(q.to(dtype))
+    kf = rs(k.to(dtype) * scale)
+    vf = rs(v.to(dtype))
+    ii = rs(i_gate.to(dtype))
+    lf = rs(F.logsigmoid(f_gate.to(dtype)))
+    t_idx = torch.arange(L, device=q.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+
+    C_p = torch.zeros((B, H, D, D), dtype=dtype, device=q.device)
+    n_p = torch.zeros((B, H, D), dtype=dtype, device=q.device)
+    m_p = torch.full((B, H), NEG_INF, dtype=dtype, device=q.device)
+    outs = []
+    for c in range(nc):
+        qc, kc, vc, ic, lc = qf[c], kf[c], vf[c], ii[c], lf[c]
+        b = torch.cumsum(lc, dim=-1)  # (B, H, L)
+        g = b[..., -1]
+        Dm = b[..., :, None] - b[..., None, :] + ic[..., None, :]
+        Dm = torch.where(causal, Dm, torch.full_like(Dm, NEG_INF))
+        m_inter = b + m_p[..., None]
+        m_comb = torch.maximum(torch.amax(Dm, dim=-1), m_inter)
+        dexp = torch.exp(Dm - m_comb[..., None])
+        w = torch.einsum("bhld,bhsd->bhls", qc, kc) * dexp
+        inter_w = torch.exp(m_inter - m_comb)
+        num = torch.einsum("bhls,bhsd->bhld", w, vc) + inter_w[..., None] * torch.einsum(
+            "bhld,bhde->bhle", qc, C_p
+        )
+        den = torch.sum(w, dim=-1) + inter_w * torch.einsum("bhld,bhd->bhl", qc, n_p)
+        den = torch.maximum(torch.abs(den), torch.exp(-m_comb))
+        outs.append(num / den[..., None])
+        key_w = g[..., None] - b + ic
+        m_new = torch.maximum(g + m_p, torch.amax(key_w, dim=-1))
+        kscaled = kc * torch.exp(key_w - m_new[..., None])[..., None]
+        decay = torch.exp(g + m_p - m_new)
+        C_p = decay[..., None, None] * C_p + torch.einsum("bhld,bhle->bhde", kscaled, vc)
+        n_p = decay[..., None] * n_p + torch.sum(kscaled, dim=-2)
+        m_p = m_new
+    out = torch.stack(outs).transpose(2, 3).movedim(0, 1).reshape(B, T, H, D)
+    return out.to(q.dtype)

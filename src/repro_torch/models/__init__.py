@@ -5,7 +5,7 @@
 * :mod:`repro_torch.models.attention`   — GQA full/sliding-window attention, decode
 * :mod:`repro_torch.models.mamba`       — Mamba selective-SSM mixer, decode state
 * :mod:`repro_torch.models.moe`         — top-k MoE with sorted capacity dispatch
-* :mod:`repro_torch.models.xlstm`       — the causal conv the mamba mixer shares
+* :mod:`repro_torch.models.xlstm`       — mLSTM and sLSTM blocks, and the causal conv the mamba mixer shares
 * :mod:`repro_torch.models.transformer` — the block-pattern model builder
 * :mod:`repro_torch.models.convert`     — the reference's parameters for the port
 """

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig, MambaConfig
 from repro_torch.models.layers import Params, apply_norm, dense, dense_init, norm_init
-from repro_torch.models.xlstm import _causal_conv, _conv_init  # shared depthwise conv
+from repro_torch.models.xlstm import _causal_conv, _conv_init, _conv_step  # shared depthwise conv
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init"]
 
@@ -103,9 +103,7 @@ def mamba_decode(
     """
     h = apply_norm(p["norm"], x, cfg.norm)
     xin, z = torch.chunk(dense(p["w_in"], h), 2, dim=-1)  # (B, 1, di)
-    window = torch.cat([state["conv"], xin.to(state["conv"].dtype)], dim=1)
-    w = torch.flip(p["conv"], dims=(0,))  # window[-1] (current) pairs with w[0]
-    xc = F.silu(torch.einsum("bwc,wc->bc", window.float(), w.float()))[:, None, :].to(x.dtype)
+    xc, window = _conv_step(p["conv"], state["conv"], xin)
     dt, Bm, Cm = _ssm_inputs(p, cfg, xc)  # (B, 1, di) (B, 1, N) (B, 1, N)
     A = -torch.exp(p["log_a"])
     dtf = dt[:, 0].float()  # (B, di)
@@ -116,5 +114,5 @@ def mamba_decode(
     y = y + p["d_skip"][None] * xc[:, 0].float()
     y = y[:, None, :].to(x.dtype) * F.silu(z)
     state["h"].copy_(h_new)
-    state["conv"].copy_(window[:, 1:])
+    state["conv"].copy_(window)
     return x + dense(p["w_out"], y), state

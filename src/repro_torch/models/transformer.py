@@ -6,15 +6,16 @@ the JAX package, so parameter trees convert one to one
 (:mod:`repro_torch.models.convert`). Where the reference scans the repeats,
 this runs a plain loop over them.
 
-Ported layer kinds: ATTN and LOCAL_ATTN (norm, attention), and MAMBA (the
-mixer, which carries its own norm), each followed by a dense MLP or an MoE
-sub-layer. MLSTM and SLSTM raise ``NotImplementedError`` naming their
+Layer kinds: ATTN and LOCAL_ATTN (norm, attention) and MAMBA (the mixer,
+which carries its own norm), each followed by a dense MLP or an MoE
+sub-layer; MLSTM and SLSTM, self-contained xLSTM blocks with no MLP.
+Encoder and vision inputs raise ``NotImplementedError`` naming their
 ROADMAP.md item.
 
 Entry points:
 * :func:`init_params`  — random parameters from a seeded ``torch.Generator``
 * :func:`forward`      — full-sequence (prefill / scoring) -> logits, aux
-* :func:`init_cache`   — per-layer decode state (KV cache / SSM state), stacked like the params
+* :func:`init_cache`   — per-layer decode state (KV cache / SSM / xLSTM state), stacked like the params
 * :func:`decode_step`  — one token against the cache (updated in place)
 
 Each takes ``device=None``: the card unless the caller passes ``"cpu"``
@@ -34,6 +35,16 @@ from repro_torch.models.config import ArchConfig, LayerKind
 from repro_torch.models.layers import Params, apply_norm, embed_init, mlp_apply, mlp_init, norm_init
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init, mamba_state_init
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.xlstm import (
+    mlstm_block_apply,
+    mlstm_block_decode,
+    mlstm_block_init,
+    mlstm_state_init,
+    slstm_block_apply,
+    slstm_block_decode,
+    slstm_block_init,
+    slstm_state_init,
+)
 
 __all__ = [
     "init_params",
@@ -44,20 +55,15 @@ __all__ = [
     "apply_unit",
 ]
 
-# layer kinds that wait for a later slice, by ROADMAP.md item
-_UNPORTED_KINDS = {
-    LayerKind.MLSTM: "A.3 (xlstm: mLSTM block and the mlstm kernel, K3)",
-    LayerKind.SLSTM: "A.3 (xlstm: sLSTM block)",
-}
 _ATTN_KINDS = (LayerKind.ATTN, LayerKind.LOCAL_ATTN)
+# self-contained xLSTM blocks (no MLP): (init, decode-state init, decode step)
+_XLSTM = {
+    LayerKind.MLSTM: (mlstm_block_init, mlstm_state_init, mlstm_block_decode),
+    LayerKind.SLSTM: (slstm_block_init, slstm_state_init, slstm_block_decode),
+}
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    for kind, _ in cfg.pattern_unit():
-        if kind in _UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet; ROADMAP.md {_UNPORTED_KINDS[kind]}"
-            )
     if cfg.encoder is not None or cfg.vision_tokens > 0:
         raise NotImplementedError(
             f"{cfg.name}: encoder/vision inputs are not ported yet; ROADMAP.md A.5"
@@ -89,14 +95,19 @@ def _layer_init(
     gen: torch.Generator, cfg: ArchConfig, kind: str, is_moe: bool, device: torch.device
 ) -> Params:
     """One unit position's params, stacked over the repeats (the reference's
-    layout: a mamba layer has no ``norm1``, its mixer carries its own norm)."""
+    layout: a mamba layer has no ``norm1``, its mixer carries its own norm;
+    an xLSTM layer is one self-contained ``block``)."""
     dt = _dtype(cfg)
     lead = (cfg.num_pattern_repeats,)
     p: Params = {}
+    if kind in _XLSTM:
+        block_init, _, _ = _XLSTM[kind]
+        p["block"] = block_init(gen, cfg, dt, device, lead)
+        return p
     if kind in _ATTN_KINDS:
         p["norm1"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
         p["attn"] = attn_init(gen, cfg, dt, device, lead)
-    else:  # LayerKind.MAMBA; _check_ported has refused the rest
+    else:  # LayerKind.MAMBA
         p["mixer"] = mamba_init(gen, cfg, dt, device, lead)
     if is_moe:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
@@ -188,6 +199,12 @@ def apply_unit(
     """One pattern unit of layers. Returns (x, the unit's summed MoE aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _), p in zip(cfg.pattern_unit(), unit_params, strict=True):
+        if kind == LayerKind.MLSTM:
+            x = mlstm_block_apply(p["block"], cfg, x, impl=impl)
+            continue
+        if kind == LayerKind.SLSTM:
+            x = slstm_block_apply(p["block"], cfg, x)
+            continue
         if kind in _ATTN_KINDS:
             h = apply_norm(p["norm1"], x, cfg.norm)
             x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
@@ -230,13 +247,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device: DeviceLike 
 
     Attention layers get a KV cache; sliding-window ones only ever need
     ``min(max_len, window)`` slots. Mamba layers get their fp32 SSM state
-    ``h`` (B, Di, N) and conv window (B, d_conv - 1, Di).
+    ``h`` (B, Di, N) and conv window (B, d_conv - 1, Di); mLSTM layers C, n,
+    m and sLSTM layers c, n, m, h in fp32, each with its conv window.
     """
     _check_ported(cfg)
     dev = resolve_device(device)
     lead = (cfg.num_pattern_repeats,)
     cache: Params = {}
     for u, (kind, _) in enumerate(cfg.pattern_unit()):
+        if kind in _XLSTM:
+            _, state_init, _ = _XLSTM[kind]
+            cache[f"u{u}"] = state_init(cfg, batch, _dtype(cfg), dev, lead)
+            continue
         if kind not in _ATTN_KINDS:
             cache[f"u{u}"] = mamba_state_init(cfg, batch, _dtype(cfg), dev, lead)
             continue
@@ -257,8 +279,9 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step; returns (logits (B, 1, V) fp32, the cache updated in place).
 
-    Attention against the cache and the one-token mamba step are plain torch,
-    as in the reference, which reaches no kernel here either. The MoE runs
+    Attention against the cache and the one-token mamba, mLSTM and sLSTM
+    steps are plain torch, as in the reference, which reaches no kernel here
+    either. The MoE runs
     its dispatch over the batch's B tokens.
     """
     _check_ported(cfg)
@@ -270,6 +293,10 @@ def decode_step(
         for u, (kind, _) in enumerate(unit):
             p = _index(params["blocks"][f"u{u}"], r)
             st = _index(cache[f"u{u}"], r)
+            if kind in _XLSTM:
+                _, _, block_decode = _XLSTM[kind]
+                x, _ = block_decode(p["block"], cfg, x, st)
+                continue
             if kind in _ATTN_KINDS:
                 window = _window(cfg, kind)
                 L = st["k"].shape[1]

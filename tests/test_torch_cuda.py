@@ -11,8 +11,14 @@ import torch
 
 import repro_torch.kernels.flash_attention as fa
 import repro_torch.kernels.mamba_scan as ms
+import repro_torch.kernels.mlstm as ml
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
+from repro_torch.kernels.ref import (
+    attention_ref,
+    mamba_scan_ref,
+    mlstm_chunked_scan,
+    mlstm_chunkwise_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +174,92 @@ def test_mamba_kernel_rejects_what_it_does_not_take(card):
     x, dt, A, Bm, Cm, D = _mamba_inputs(card, (1, 8, 64, ms.MAX_STATES + 1, "float32", "float32"))
     with pytest.raises(ValueError, match="states"):
         ms.mamba_scan(x, dt, A, Bm, Cm, D)
+
+
+# tests/test_kernels.py MLSTM_CASES (B, T, H, D, L); L is the plain version's
+# chunk (the kernel takes its own)
+MLSTM_CASES = [(2, 128, 2, 64, 64), (1, 256, 4, 64, 128), (1, 128, 1, 128, 32)]
+# fp32: the relative form and bar of tests/test_kernels.py; bf16: one bf16
+# rounding of the output on top (2^-8 relative)
+MLSTM_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
+
+
+def _mlstm_inputs(card, B, T, H, D, dtype="float32", seed=0):
+    """The inputs of tests/test_kernels.py: i ~ N(0, 1), f ~ N(2, 2)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0, dt="float32"):
+        a = (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+        return torch.from_numpy(a).to(card, getattr(torch, dt))
+
+    q, k, v = (t(B, T, H, D, dt=dtype) for _ in range(3))
+    return q, k, v, t(B, T, H), t(B, T, H, scale=2.0, shift=2.0)
+
+
+def _mlstm_rel(out, ref):
+    """max |a - b| / (|b| + 1e-2), the form of tests/test_kernels.py."""
+    out, ref = out.float(), ref.float()
+    return float(((out - ref).abs() / (ref.abs() + 1e-2)).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=[f"case{i}" for i in range(len(MLSTM_CASES))])
+def test_mlstm_kernel_matches_plain_version(card, case, dtype):
+    B, T, H, D, L = case
+    args = _mlstm_inputs(card, B, T, H, D, dtype)
+    out = ml.mlstm_chunkwise(*args)
+    ref = mlstm_chunked_scan(*args, chunk=L)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert _mlstm_rel(out, ref) < MLSTM_TOL[dtype]
+
+
+def test_mlstm_kernel_masks_ragged_T(card):
+    """T not a multiple of the kernel's chunk: the short last chunk is masked;
+    the quadratic oracle takes any T."""
+    args = _mlstm_inputs(card, 2, 3 * ml.CHUNK + 17, 2, 64, seed=1)
+    out = ml.mlstm_chunkwise(*args)
+    assert _mlstm_rel(out, mlstm_chunkwise_ref(*args)) < MLSTM_TOL["float32"]
+
+
+def test_mlstm_kernel_reads_strided_inputs(card):
+    """q, k, v as head-major views of one (B, H, T, 3D) tensor and gates as
+    views of a (B, H, T, 2) tensor: every axis but D strided, no copies."""
+    B, T, H, D = 1, 192, 2, 64
+    q, k, v, ig, fg = _mlstm_inputs(card, B, T, H, D, seed=2)
+    qkv = torch.cat([q, k, v], dim=-1).transpose(1, 2).contiguous()  # (B, H, T, 3D)
+    gates = torch.stack([ig, fg], dim=-1).transpose(1, 2).contiguous()  # (B, H, T, 2)
+    views = [qkv[..., i * D:(i + 1) * D].transpose(1, 2) for i in range(3)]
+    views += [gates[..., 0].transpose(1, 2), gates[..., 1].transpose(1, 2)]
+    assert not any(t.is_contiguous() for t in views)
+    out = ml.mlstm_chunkwise(*views)
+    torch.testing.assert_close(out, ml.mlstm_chunkwise(q, k, v, ig, fg), atol=0, rtol=0)
+
+
+def test_mlstm_auto_on_card_launches_the_kernel(card):
+    args = _mlstm_inputs(card, 1, 128, 2, 64)
+    before = ml.LAUNCHES
+    out = ops.mlstm(*args, impl="auto")
+    assert ml.LAUNCHES == before + 1
+    assert _mlstm_rel(out, ops.mlstm(*args, impl="ref")) < MLSTM_TOL["float32"]
+    assert ml.LAUNCHES == before + 1
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take(card):
+    q, k, v, ig, fg = _mlstm_inputs(card, 1, 64, 2, 32)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ml.mlstm_chunkwise(q.cpu(), k, v, ig, fg)
+    with pytest.raises(ValueError, match="i_gate lies on cpu"):  # mixed devices
+        ml.mlstm_chunkwise(q, k, v, ig.cpu(), fg)
+    with pytest.raises(ValueError, match=r"q must be \(B, T, H, D\)"):
+        ml.mlstm_chunkwise(q[0], k[0], v[0], ig[0], fg[0])
+    with pytest.raises(ValueError, match="k is"):
+        ml.mlstm_chunkwise(q, k[:, :-1], v, ig, fg)
+    with pytest.raises(ValueError, match="f_gate is"):
+        ml.mlstm_chunkwise(q, k, v, ig, fg[..., :1])
+    with pytest.raises(TypeError, match="float16"):
+        ml.mlstm_chunkwise(q.half(), k.half(), v.half(), ig, fg)
+    with pytest.raises(TypeError, match="gates must be float32"):
+        ml.mlstm_chunkwise(q, k, v, ig.bfloat16(), fg)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        ml.mlstm_chunkwise(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, ig, fg)

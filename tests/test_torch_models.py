@@ -215,13 +215,15 @@ def test_params_from_jax_rejects_a_wrong_tree(fp32):
 
 @pytest.mark.parametrize("pattern", ["xlstm", "jamba"])
 def test_unported_layer_kinds_raise(pattern):
-    """xlstm's blocks still wait for ROADMAP.md A.3; jamba's mamba layers are
-    ported (A.2), so its case now builds, with a mixer in place of attention."""
+    """Every layer kind of the block patterns is ported now (jamba's mamba
+    layers in A.2, xlstm's mLSTM and sLSTM blocks in A.3), so both cases
+    build: jamba with a mixer in place of attention, xlstm with one
+    self-contained ``block`` (no MLP) in every unit position."""
     cfg = dataclasses.replace(smoke_config(ARCH), block_pattern=pattern, local_global_ratio=None)
+    blocks = init_params(cfg, device="cpu")["blocks"]
     if pattern == "jamba":
-        blocks = init_params(cfg, device="cpu")["blocks"]
         assert "mixer" in blocks["u0"] and "norm1" not in blocks["u0"]
         assert any("attn" in p for p in blocks.values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        init_params(cfg, device="cpu")
+    assert len(blocks) == len(cfg.pattern_unit())
+    assert all(set(p) == {"block"} for p in blocks.values())
