@@ -47,6 +47,28 @@ Then the xlstm-350m path, full width and full depth (21 mLSTM, 3 sLSTM):
 15. xlstm_decode — fp32 model, 16 ``decode_step``s against ``forward``.
 16. xlstm_serve — ``serve("xlstm_350m", smoke=False, batch=4, steps=32)``.
 
+Then the granite-moe-3b-a800m path, full width and full depth (32 layers, each
+attention and a 40-expert top-8 MoE, tied embedding), whose MoE expert
+products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
+
+17. gmm_kernels — K4 against its plain version: the cases of
+              tests/test_kernels.py (uneven groups included) in fp32, bf16
+              and bf16 with fp32 output, the granite and jamba prefill
+              products, the decode shape (one row per expert) and a ragged
+              K, N and row block (1e-3 fp32 output, 1e-2 bf16); kernel,
+              plain, bound and ``torch.bmm`` times at the paths' shapes.
+18. granite_attention — flash attention at the granite attention shape
+              (B=2, S=2048, 24/8 heads of 64, causal, bf16) against its plain
+              version, beside ``scaled_dot_product_attention``.
+19. granite_prefill — bf16 ``forward`` on B=2, S=2048 (launch counts: 32
+              attention, 96 K4; top-1 agreement with the plain path,
+              tokens/s, peak memory); one fp32 MoE layer, kernel vs plain.
+20. granite_profile — torch.profiler over one bf16 prefill and 4 decode
+              steps: K4's and K1's shares of the device time, the idle share.
+21. granite_decode — fp32 model, 16 ``decode_step``s against ``forward``;
+              K4's launches in those steps.
+22. granite_serve — ``serve("granite_moe_3b_a800m", smoke=False, ...)``.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -132,6 +154,23 @@ MLSTM_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
 # one fp32 mLSTM block, kernel vs plain: max |diff| <= BLOCK_RTOL * max |plain|
 BLOCK_RTOL = 1e-4
 
+# granite-moe-3b-a800m at full width and depth: 32 x (attention, MoE)
+GRANITE = "granite_moe_3b_a800m"
+# flash attention at the granite attention shape (every layer: 24/8 heads of 64, causal)
+GRANITE_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 24, 8, 64, True, None, None, 0, "bfloat16")
+# K4: tests/test_kernels.py's gmm cases as (group sizes, K, N), every group one
+# row block, then a ragged one (K and N multiples of 8 but of no tile; row
+# blocks of 200 rows, cut into tiles of 128 and 72)
+GMM_CASES = [([256] * 4, 256, 128), ([128] * 8, 512, 256), ([128] * 2, 128, 128),
+             ([256, 128, 384], 256, 128)]
+GMM_RAGGED = ([200] * 3, 200, 72)
+# fp32 output: the bar of tests/test_kernels.py (sums in another order); bf16
+# output: a sum near a rounding boundary may round the other way, one bf16 ulp
+# (2^-8 relative) and some
+GMM_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# one fp32 MoE layer, kernel vs plain: max |diff| <= MOE_RTOL * max |plain|
+MOE_RTOL = 1e-5
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -173,17 +212,30 @@ def main() -> int:
     ml_row["launches"] = phase_xlstm_prefill(torch, dev)["mlstm"]
     phase_xlstm_decode(torch, dev)
     phase_xlstm_serve(torch)
+    gmm_row, gmm_paths = phase_gmm_kernels(torch, dev)
+    granite_fa = phase_granite_attention(torch, dev)
+    granite = phase_granite_prefill(torch, dev)
+    phase_granite_decode(torch, dev)
+    phase_granite_serve(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
+    granite_fa["launches"] = granite["flash_attention"]
+    # K4's row holds its first path's numbers (granite, per launch over a
+    # forward's 96); the jamba path's stand beside them under by_path
+    gmm_paths[GRANITE]["launches"] = granite["gmm"]
+    gmm_paths[JAMBA]["launches"] = launches["gmm"]
+    gmm_row.update({k: gmm_paths[GRANITE][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "library_ms")})
+    gmm_row["by_path"] = gmm_paths
     # flash attention's row keeps its first path's numbers (gemma3-1b, per launch
-    # over a forward's 26); the jamba path's stand beside them under by_path
+    # over a forward's 26); the jamba and granite paths' stand beside them under by_path
     fa_row.update({k: gemma_fa[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")})
     gemma_fa["max_abs_err"] = fa_row["max_abs_err"]
-    fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa}
+    fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa, GRANITE: granite_fa}
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [fa_row, ms_row, ml_row]}), flush=True)
+    print(json.dumps({"kernels": [fa_row, ms_row, ml_row, gmm_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -196,18 +248,21 @@ def main() -> int:
 def _reset_counts():
     """Every kernel's launch count to 0, just before a main path is driven."""
     import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.gmm as gk
     import repro_torch.kernels.mamba_scan as ms
     import repro_torch.kernels.mlstm as ml
 
-    fa.LAUNCHES = ms.LAUNCHES = ml.LAUNCHES = 0
+    fa.LAUNCHES = ms.LAUNCHES = ml.LAUNCHES = gk.LAUNCHES = 0
 
 
 def _counts() -> dict:
     import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.gmm as gk
     import repro_torch.kernels.mamba_scan as ms
     import repro_torch.kernels.mlstm as ml
 
-    return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES, "mlstm": ml.LAUNCHES}
+    return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES, "mlstm": ml.LAUNCHES,
+            "gmm": gk.LAUNCHES}
 
 
 def phase_device(torch) -> str:
@@ -296,6 +351,28 @@ def _cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's cost of each call (the wrapper's checks,
+    the allocation, the launch) is not timed. The decode shapes' kernels run
+    in less time than that host cost."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _attended_pairs(Sq, Sk, causal, window, q_offset) -> int:
     q = np.arange(Sq)[:, None] + q_offset
     k = np.arange(Sk)[None, :]
@@ -377,7 +454,7 @@ def phase_prefill(torch, dev) -> dict:
         del lk, lr, params
         torch.cuda.empty_cache()
     check(launches == cfg.n_layers, f"bf16 forward launched the kernel {launches} times, not 26")
-    check(counts["mamba_scan"] == counts["mlstm"] == 0,
+    check(counts["mamba_scan"] == counts["mlstm"] == counts["gmm"] == 0,
           f"gemma3-1b forward launched another kernel than flash attention: {counts}")
     check(finite, "bf16 logits are not finite")
     check(top1 >= TOP1_MIN, f"bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
@@ -554,12 +631,39 @@ def _scan_bound(case):
             "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
 
 
+def _fa_at_shape(torch, dev, case, seed) -> dict:
+    """K1 against attention_ref at one path's attention shape (bf16 bar), with
+    its kernel, plain, torch's fused attention and bound times."""
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, v = _qkv(torch, dev, case, seed)
+    kw = _kw(case)
+    out, ref = fa.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
+    tol = TOL[case[-1]]
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+    del out, ref
+    bound, by, flops, _ = _bound_ms(case)
+    row = {
+        "shape": case[:6], "dtype": case[-1], "max_abs_err": err, "tol": tol, "ok": ok,
+        "ms": _cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+        "plain_ms": _cuda_ms(torch, lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
+        "library_ms": _cuda_ms(torch, _sdpa(torch, q, k, v, case)),
+        "bound_ms": bound,
+        "bound_by": by,
+        "gflop": flops / 1e9,
+    }
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_jamba_kernels(torch, dev):
     """K2 against its plain version on every case, with its kernel, plain and
     bound times for each; K1 at the jamba attention shape."""
-    import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.mamba_scan as ms
-    from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
+    from repro_torch.kernels.ref import mamba_scan_ref
 
     rows = []
     cases = [(f"mamba_case_{i}", c, False) for i, c in enumerate(MAMBA_CASES)]
@@ -593,34 +697,22 @@ def phase_jamba_kernels(torch, dev):
     }
 
     # K1 at the jamba attention shape, beside torch's fused attention
-    q, k, v = _qkv(torch, dev, JAMBA_ATTN, seed=101)
-    kw = _kw(JAMBA_ATTN)
-    out, ref = fa.flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
-    fa_err = (out.float() - ref.float()).abs().max().item()
-    fa_ok = bool(torch.allclose(out.float(), ref.float(), atol=TOL["bfloat16"], rtol=TOL["bfloat16"]))
-    lib = _sdpa(torch, q, k, v, JAMBA_ATTN)
-    fa_bound, fa_by, flops, _ = _bound_ms(JAMBA_ATTN)
-    jamba_fa = {
-        "max_abs_err": fa_err,
-        "ms": _cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
-        "plain_ms": _cuda_ms(torch, lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
-        "library_ms": _cuda_ms(torch, lib),
-        "bound_ms": fa_bound,
-        "bound_by": fa_by,
-        "gflop": flops / 1e9,
-    }
+    jamba_fa = _fa_at_shape(torch, dev, JAMBA_ATTN, seed=101)
     emit("jamba_kernels", mamba_scan_cases=rows, flash_attention_jamba_shape=jamba_fa)
-    check(fa_ok, f"flash_attention disagrees with attention_ref at the jamba shape: {fa_err}")
-    del q, k, v, out, ref, args
+    check(jamba_fa.pop("ok"), f"flash_attention disagrees with attention_ref at the jamba shape: "
+          f"{jamba_fa['max_abs_err']}")
+    del args
     torch.cuda.empty_cache()
     return ms_row, jamba_fa
 
 
-def _jamba_cfg(dtype="bfloat16", **moe):
+def _cfg(name, dtype="bfloat16", **moe):
+    """A path's config in ``dtype``, jamba cut to JAMBA_LAYERS, with MoE overrides."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(JAMBA)
-    cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS, dtype=dtype, param_dtype=dtype)
+    cfg = dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype)
+    if name == JAMBA:
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     return cfg
@@ -636,9 +728,10 @@ def phase_jamba_prefill(torch, dev) -> dict:
     from repro_torch.models import decode_step, forward, init_cache, init_params
     from repro_torch.models.mamba import mamba_apply
 
-    cfg = _jamba_cfg()
+    cfg = _cfg(JAMBA)
     n_mamba = sum(k == "mamba" for k, _ in cfg.pattern_unit())
     n_attn = len(cfg.pattern_unit()) - n_mamba
+    n_moe = sum(is_moe for _, is_moe in cfg.pattern_unit())
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
     with torch.inference_mode():
@@ -666,7 +759,7 @@ def phase_jamba_prefill(torch, dev) -> dict:
 
         # one full-width mixer in fp32 (layer 0's weights, upcast): kernel vs plain
         mixer = _first_repeat_fp32(params["blocks"]["u0"]["mixer"])
-        cfg32 = _jamba_cfg("float32")
+        cfg32 = _cfg(JAMBA, "float32")
         x = torch.as_tensor(np.random.default_rng(4).standard_normal((1, PREFILL_S, cfg.d_model)),
                             dtype=torch.float32, device=dev)
         yk = mamba_apply(mixer, cfg32, x, impl="auto")
@@ -676,7 +769,7 @@ def phase_jamba_prefill(torch, dev) -> dict:
         del mixer, x, yk, yr
 
         # profile: one prefill forward and 4 decode steps at batch 4
-        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch))
+        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), groups=_GROUPS)
         cache = init_cache(cfg, 4, 128)
         tok = batch["tokens"][:, :1].repeat(2, 1)
         decode_step(cfg, params, cache, tok, 0)  # warm-up
@@ -685,7 +778,7 @@ def phase_jamba_prefill(torch, dev) -> dict:
             for i in range(1, 5):
                 decode_step(cfg, params, cache, tok, i)
 
-        decode_prof = _profile(torch, four_steps)
+        decode_prof = _profile(torch, four_steps, groups=_GROUPS)
         del params, cache, batch
         torch.cuda.empty_cache()
     emit(
@@ -699,8 +792,9 @@ def phase_jamba_prefill(torch, dev) -> dict:
         fp32_mixer_tol=f"max|diff| <= {MIXER_RTOL} * max|plain|",
     )
     emit("jamba_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof)
-    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn, "mlstm": 0},
-          f"jamba forward launched {counts}, expected {n_mamba} scans and {n_attn} attention")
+    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn, "mlstm": 0, "gmm": 3 * n_moe},
+          f"jamba forward launched {counts}, expected {n_mamba} scans, {n_attn} attention and "
+          f"{3 * n_moe} grouped products")
     check(finite, "jamba bf16 logits or aux are not finite")
     check(top1 >= TOP1_MIN, f"jamba bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
     check(mix_err <= MIXER_RTOL * mix_scale,
@@ -713,7 +807,7 @@ def phase_jamba_decode(torch, dev) -> None:
     MoE capacity to spare (tests/test_models.py::test_decode_matches_forward)."""
     from repro_torch.models import decode_step, forward, init_cache, init_params
 
-    cfg = _jamba_cfg("float32", capacity_factor=8.0)
+    cfg = _cfg(JAMBA, "float32", capacity_factor=8.0)
     S = 16
     tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, S)), device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -842,12 +936,6 @@ def phase_xlstm_kernels(torch, dev) -> dict:
     }
 
 
-def _xlstm_cfg(dtype="bfloat16"):
-    from repro_torch.configs import get_config
-
-    return dataclasses.replace(get_config(XLSTM), dtype=dtype, param_dtype=dtype)
-
-
 def _slstm_loop_ms(torch, cfg, params, batch) -> list:
     """Wall time (ms) of each sLSTM layer's time loop alone, on the gates that
     the prefill gives it (host clock, synchronised around the loop)."""
@@ -886,7 +974,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
     from repro_torch.models import decode_step, forward, init_cache, init_params
     from repro_torch.models.xlstm import mlstm_block_apply
 
-    cfg = _xlstm_cfg()
+    cfg = _cfg(XLSTM)
     n_mlstm = sum(k == "mlstm" for k in cfg.layer_kinds())
     tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
@@ -915,7 +1003,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
 
         # one full-width mLSTM block in fp32 (layer 0's weights, upcast): kernel vs plain
         block = _first_repeat_fp32(params["blocks"]["u0"]["block"])
-        cfg32 = _xlstm_cfg("float32")
+        cfg32 = _cfg(XLSTM, "float32")
         x = torch.as_tensor(np.random.default_rng(7).standard_normal((1, PREFILL_S, cfg.d_model)),
                             dtype=torch.float32, device=dev)
         yk = mlstm_block_apply(block, cfg32, x, impl="auto")
@@ -962,7 +1050,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
          k3_device_ms=k3_ms, k3_share_of_busy=k3_ms / busy if busy else None,
          forward_ms=forward_ms, slstm_loop_ms=loops.tolist(), slstm_steps=PREFILL_S,
          slstm_loop_share_of_wall=float(loops.sum() / np.median(forward_ms)))
-    check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0},
+    check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0, "gmm": 0},
           f"xlstm forward launched {counts}, expected {n_mlstm} mLSTM kernels and no other")
     check(finite, "xlstm bf16 logits are not finite")
     check(top1 >= TOP1_MIN, f"xlstm bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
@@ -981,7 +1069,7 @@ def phase_xlstm_decode(torch, dev) -> None:
     (tests/test_models.py::test_decode_matches_forward)."""
     from repro_torch.models import decode_step, forward, init_cache, init_params
 
-    cfg = _xlstm_cfg("float32")
+    cfg = _cfg(XLSTM, "float32")
     S = 16
     tokens = torch.as_tensor(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, S)), device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1011,9 +1099,297 @@ def phase_xlstm_serve(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
     tps = serve(XLSTM, smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
     torch.cuda.empty_cache()
-    emit("xlstm_serve", n_layers=_xlstm_cfg().n_layers, batch=batch, steps=steps, tok_per_s=tps,
+    emit("xlstm_serve", n_layers=_cfg(XLSTM).n_layers, batch=batch, steps=steps, tok_per_s=tps,
          ms_per_step=batch / tps * 1e3, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "xlstm serve returned no rate")
+
+
+# ----------------------------- granite phases --------------------------------
+
+# the kernels' launches as the profiler names them, for device time by kernel
+_GROUPS = {"gmm": ("gmm_bf16_kernel", "gmm_f32_kernel"), "flash_attention": ("fa_fwd_kernel",),
+           "mamba_scan": ("mamba_scan_kernel",)}
+
+
+def _capacity(cfg, tokens: int) -> int:
+    """The MoE's rows per expert, ceil(T * k / E * capacity_factor), as models/moe.py."""
+    mc = cfg.moe
+    return int(np.ceil(tokens * mc.top_k / mc.num_experts * mc.capacity_factor))
+
+
+def _gmm_products(torch):
+    """The main paths' K4 launches at B=2, S=2048 prefill and batch-4 decode:
+    (path, product, groups E, rows per group C, K, N, output type, launches per
+    forward). Up and gate return fp32 (the reference keeps them fp32 up to the
+    activation); down returns the activations' type."""
+    rows = []
+    for name in (GRANITE, JAMBA):
+        cfg = _cfg(name)
+        n_moe = sum(m for _, m in cfg.pattern_unit()) * cfg.num_pattern_repeats
+        E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+        for phase, tokens in (("prefill", PREFILL_B * PREFILL_S), ("decode", 4)):
+            C = _capacity(cfg, tokens)
+            rows.append((name, f"{phase}_up_gate", E, C, d, f, torch.float32, 2 * n_moe))
+            rows.append((name, f"{phase}_down", E, C, f, d, torch.bfloat16, n_moe))
+    return rows
+
+
+def _gmm_bound(M, K, N, G, in_bytes, out_bytes):
+    """Least time of one launch: lhs, the G weight matrices and the output
+    moved once over HBM; 2*M*K*N operations at the tensor rate (bf16 inputs)
+    or the CUDA-core rate (fp32 inputs)."""
+    nbytes = in_bytes * (M * K + G * K * N) + out_bytes * M * N
+    flops = 2 * M * K * N
+    peak = PEAK_FLOPS["bfloat16" if in_bytes == 2 else "float32"]
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def _gmm_inputs(torch, dev, sizes, K, N, dtype, seed, scaled=False):
+    """lhs ~ N(0, 1); rhs ~ N(0, 1) as in tests/test_kernels.py, or with
+    ``scaled`` N(0, 1/K) as the MoE's weights are initialised. Drawn on the
+    card: jamba's weight stack is 0.94 G numbers."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lhs = torch.randn((sum(sizes), K), generator=gen, device=dev).to(dtype)
+    rhs = torch.randn((len(sizes), K, N), generator=gen, device=dev)
+    if scaled:
+        rhs /= np.sqrt(K)
+    return lhs, rhs.to(dtype)
+
+
+def _gmm_check(torch, dev, gk, gmm_ref, sizes, K, N, dtype, out_dtype, seed, scaled=False):
+    lhs, rhs = _gmm_inputs(torch, dev, sizes, K, N, dtype, seed, scaled)
+    bm = int(np.gcd.reduce(sizes))
+    ids = torch.tensor(np.repeat(np.arange(len(sizes)), np.asarray(sizes) // bm), dtype=torch.int32,
+                       device=dev)
+    out = gk.gmm(lhs, rhs, ids, out_dtype=out_dtype)
+    ref = gmm_ref(lhs, rhs, sizes, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    tol = GMM_TOL["float32" if out_dtype == torch.float32 else "bfloat16"]
+    row = {"groups": len(sizes), "rows": sizes if len(set(sizes)) > 1 else sizes[0], "K": K, "N": N,
+           "dtype": str(dtype).split(".")[-1], "out_dtype": str(out_dtype).split(".")[-1],
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_abs": ref.float().abs().max().item(), "tol": tol,
+           "ok": bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))}
+    return row, (lhs, rhs, ids)
+
+
+def phase_gmm_kernels(torch, dev):
+    """K4 against its plain version on every case; at the paths' shapes also
+    its kernel, plain, bound and ``torch.bmm`` times (the call the port's MoE
+    made before K4 carried it). The kernel and ``torch.bmm`` are timed in CUDA
+    graphs (device time; ``ms_eager`` adds the wrapper's host cost, which
+    exceeds a decode launch's device time). Returns K4's row and its numbers
+    by path, per launch averaged over a prefill forward's launches."""
+    import repro_torch.kernels.gmm as gk
+    from repro_torch.kernels.ref import gmm_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases, seed = [], 0
+    for i, (sizes, K, N) in enumerate([*GMM_CASES, GMM_RAGGED]):
+        name = "ragged" if i == len(GMM_CASES) else f"gmm_case_{i}"
+        for dtype, out_dtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            seed += 1
+            row, _ = _gmm_check(torch, dev, gk, gmm_ref, sizes, K, N, dtype, out_dtype, seed)
+            cases.append({"case": name, **row})
+    paths = []
+    for name, product, E, C, K, N, out_dtype, per_forward in _gmm_products(torch):
+        seed += 1
+        row, (lhs, rhs, ids) = _gmm_check(torch, dev, gk, gmm_ref, [C] * E, K, N, bf16, out_dtype,
+                                          seed, scaled=True)
+        lhs3 = lhs.view(E, C, K)
+        bmm = ((lambda: torch.bmm(lhs3, rhs, out_dtype=f32)) if out_dtype == f32
+               else (lambda: torch.bmm(lhs3, rhs)))
+        lib_err = (bmm().reshape(E * C, N).float() - gmm_ref(lhs, rhs, [C] * E, out_dtype=out_dtype)
+                   .float()).abs().max().item()
+        kernel = lambda: gk.gmm(lhs, rhs, ids, out_dtype=out_dtype)  # noqa: E731
+        row.update({
+            "path": name, "product": product, "launches_per_forward": per_forward,
+            "ms": _graph_ms(torch, kernel), "ms_eager": _cuda_ms(torch, kernel),
+            "plain_ms": _cuda_ms(torch, lambda: gmm_ref(lhs, rhs, [C] * E, out_dtype=out_dtype),
+                                 iters=5, warmup=1),
+            "library_ms": _graph_ms(torch, bmm), "library_max_abs_err": lib_err,
+            **_gmm_bound(E * C, K, N, E, 2, 4 if out_dtype == f32 else 2),
+        })
+        paths.append(row)
+        del lhs, rhs, lhs3
+    torch.cuda.empty_cache()
+    emit("gmm_kernels", cases=cases, path_products=paths,
+         tol="allclose(atol=rtol=tol): 1e-3 fp32 output, 1e-2 bf16 output")
+    check(all(r["ok"] for r in cases + paths), "gmm disagrees with gmm_ref: "
+          + json.dumps([r for r in cases + paths if not r["ok"]]))
+
+    by_path = {}
+    for name in (GRANITE, JAMBA):
+        rows = [r for r in paths if r["path"] == name and r["product"].startswith("prefill")]
+        n = sum(r["launches_per_forward"] for r in rows)
+        agg = {k: sum(r[k] * r["launches_per_forward"] for r in rows) / n
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        t_ops = sum(r["bound_ops_ms"] * r["launches_per_forward"] for r in rows)
+        t_bytes = sum(r["bound_bytes_ms"] * r["launches_per_forward"] for r in rows)
+        by_path[name] = {"max_abs_err": max(r["max_abs_err"] for r in rows), **agg,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "launches_per_forward": n}
+    return {
+        "name": "gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm.py:91",
+    }, by_path
+
+
+def phase_granite_attention(torch, dev) -> dict:
+    """K1 at the attention shape of all 32 granite layers, beside torch's fused
+    attention."""
+    granite_fa = _fa_at_shape(torch, dev, GRANITE_ATTN, seed=102)
+    emit("granite_attention", flash_attention_granite_shape=granite_fa)
+    check(granite_fa.pop("ok"), f"flash_attention disagrees with attention_ref at the granite shape: "
+          f"{granite_fa['max_abs_err']}")
+    return granite_fa
+
+
+def phase_granite_prefill(torch, dev) -> dict:
+    """The bf16 main path, the fp32 MoE layer check and the profile, on one set
+    of bf16 params. Returns the main path's launch counts."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.models.moe import moe_apply
+
+    cfg = _cfg(GRANITE)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        param_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+        n_params = sum(t.numel() for t in _leaves(params))
+        forward(cfg, params, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        lk, aux = forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lr, aux_r = forward(cfg, params, batch, impl="ref")
+        finite = bool(torch.isfinite(lk).all()) and bool(torch.isfinite(aux))
+        top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        err16 = (lk - lr).abs().max().item()
+        aux_k, aux_r = aux.item(), aux_r.item()
+        del lk, lr
+
+        # one full-width MoE layer in fp32 (layer 0's weights, upcast) on one
+        # input, so both sides route alike: kernel vs plain
+        layer = _first_repeat_fp32(params["blocks"]["u0"]["moe"])
+        cfg32 = _cfg(GRANITE, "float32")
+        x = torch.as_tensor(np.random.default_rng(10).standard_normal((1, PREFILL_S, cfg.d_model)),
+                            dtype=torch.float32, device=dev)
+        yk, _ = moe_apply(layer, cfg32, x, impl="auto")
+        yr, _ = moe_apply(layer, cfg32, x, impl="ref")
+        moe_err = (yk - yr).abs().max().item()
+        moe_scale = yr.abs().max().item()
+        del layer, x, yk, yr
+
+        # where the time goes: one profiled prefill and 4 decode steps at batch 4
+        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), top=12, groups=_GROUPS)
+        cache = init_cache(cfg, 4, 128)
+        tok = batch["tokens"][:, :1].repeat(2, 1)
+        decode_step(cfg, params, cache, tok, 0)  # warm-up
+
+        def four_steps():
+            for i in range(1, 5):
+                decode_step(cfg, params, cache, tok, i)
+
+        decode_prof = _profile(torch, four_steps, top=12, groups=_GROUPS)
+        forward_ms = []
+        for _ in range(3):  # host-clock times spread on a shared host: median of 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t0) * 1e3)
+        del params, cache, batch
+        torch.cuda.empty_cache()
+    emit(
+        "granite_prefill",
+        n_layers=cfg.n_layers, n_params=n_params, B=PREFILL_B, S=PREFILL_S, param_gb=param_gb,
+        capacity=_capacity(cfg, PREFILL_B * PREFILL_S),
+        launches=counts, bf16_top1_agreement=top1, bf16_logit_max_abs_err=err16,
+        aux_kernel=aux_k, aux_plain=aux_r,
+        prefill_s=prefill_s, prefill_tok_per_s=PREFILL_B * PREFILL_S / prefill_s, peak_gb=peak_gb,
+        forward_ms=forward_ms,
+        fp32_moe_max_abs_err=moe_err, fp32_moe_max_abs=moe_scale,
+        fp32_moe_tol=f"max|diff| <= {MOE_RTOL} * max|plain|",
+    )
+    busy = prefill_prof["device_busy_ms"]
+    shares = {k: v / busy if busy else None for k, v in prefill_prof["group_ms"].items()}
+    emit("granite_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof,
+         prefill_share_of_busy=shares)
+    check(counts == {"flash_attention": cfg.n_layers, "gmm": 3 * cfg.n_layers, "mamba_scan": 0,
+                     "mlstm": 0},
+          f"granite forward launched {counts}, expected {cfg.n_layers} attention and "
+          f"{3 * cfg.n_layers} grouped products")
+    check(finite, "granite bf16 logits or aux are not finite")
+    check(top1 >= TOP1_MIN, f"granite bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
+    check(moe_err <= MOE_RTOL * moe_scale,
+          f"fp32 MoE layer kernel vs plain: {moe_err} > {MOE_RTOL} * {moe_scale}")
+    return counts
+
+
+def phase_granite_decode(torch, dev) -> None:
+    """fp32 model: 16 decode steps against forward over the same tokens, with
+    MoE capacity to spare (tests/test_models.py::test_decode_matches_forward);
+    K4's launches counted over the decode steps alone."""
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    cfg = _cfg(GRANITE, "float32", capacity_factor=8.0)
+    S = 16
+    tokens = torch.as_tensor(np.random.default_rng(11).integers(0, cfg.vocab_size, (1, S)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params = init_params(cfg, seed=1)
+        full, _ = forward(cfg, params, {"tokens": tokens})
+        cache = init_cache(cfg, 1, 32)
+        steps = []
+        torch.cuda.synchronize()
+        _reset_counts()
+        for i in range(S):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, i : i + 1], i)
+            steps.append(lg[:, 0])
+        counts = _counts()
+        dec = torch.stack(steps, dim=1)
+        err = (dec - full).abs().max().item()
+        ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2))
+        finite = bool(torch.isfinite(dec).all())
+        del params, cache, full, dec
+        torch.cuda.empty_cache()
+    emit("granite_decode", n_layers=cfg.n_layers, steps=S, max_abs_err=err, tol="atol=rtol=2e-2",
+         launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(finite and ok, f"granite decode_step logits disagree with forward: max abs err {err}")
+    check(counts["gmm"] == 3 * cfg.n_layers * S and counts["flash_attention"] == 0,
+          f"granite decode launched {counts}, expected {3 * cfg.n_layers * S} grouped products")
+
+
+def phase_granite_serve(torch) -> None:
+    from repro_torch.launch.serve import serve
+
+    batch, steps = 4, 32
+    n_layers = _cfg(GRANITE).n_layers
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tps = serve(GRANITE, smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
+    counts = _counts()
+    torch.cuda.empty_cache()
+    emit("granite_serve", n_layers=n_layers, batch=batch, steps=steps, tok_per_s=tps,
+         ms_per_step=batch / tps * 1e3, launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(tps > 0, "granite serve returned no rate")
+    check(counts["gmm"] == 3 * n_layers * steps, f"granite serve launched {counts}")
 
 
 if __name__ == "__main__":

@@ -10,13 +10,14 @@ from __future__ import annotations
 import importlib
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ["gemma3_1b", "jamba_v01_52b", "xlstm_350m"]
+ARCH_IDS = ["gemma3_1b", "jamba_v01_52b", "xlstm_350m", "granite_moe_3b_a800m"]
 
 # canonical external ids (assignment spelling) -> module names
 ALIASES = {
     "gemma3-1b": "gemma3_1b",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "xlstm-350m": "xlstm_350m",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 

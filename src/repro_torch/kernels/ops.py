@@ -11,16 +11,17 @@ raises.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gmm import gmm as gmm_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan as mamba_scan_kernel
 from repro_torch.kernels.mlstm import mlstm_chunkwise
-from repro_torch.kernels.ref import attention_ref, mamba_scan_ref, mlstm_chunked_scan
+from repro_torch.kernels.ref import attention_ref, gmm_ref, mamba_scan_ref, mlstm_chunked_scan
 
-__all__ = ["attention", "mamba_scan", "mlstm", "resolve_impl"]
+__all__ = ["attention", "gmm", "mamba_scan", "mlstm", "resolve_impl"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -77,3 +78,21 @@ def mlstm(
     if resolve_impl(impl, q) == "cuda":
         return mlstm_chunkwise(q, k, v, i_gate, f_gate)
     return mlstm_chunked_scan(q, k, v, i_gate, f_gate, chunk=min(256, q.shape[1]))
+
+
+def gmm(
+    lhs: torch.Tensor,
+    rhs: torch.Tensor,
+    group_ids: torch.Tensor,
+    group_sizes: Union[torch.Tensor, Sequence[int], None] = None,
+    *,
+    impl: str = "auto",
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped matmul. ``"ref"`` needs ``group_sizes``, as the reference's
+    ``"ref"``; the kernel takes the group of each row block (``group_ids``)."""
+    if resolve_impl(impl, lhs) == "cuda":
+        return gmm_kernel(lhs, rhs, group_ids, out_dtype=out_dtype)
+    if group_sizes is None:
+        raise ValueError("gmm: the plain version needs group_sizes")
+    return gmm_ref(lhs, rhs, group_sizes, out_dtype=out_dtype)

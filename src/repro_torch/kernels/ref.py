@@ -8,12 +8,12 @@ substrate (``ops.attention`` picks them for CPU tensors).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan"]
+__all__ = ["attention_ref", "gmm_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan"]
 
 #: the finite stand-in for -inf of the mLSTM stabiliser (empty state, causal
 #: mask): with -inf, ``b + m_prev - m_comb`` would give NaN
@@ -202,3 +202,35 @@ def mlstm_chunked_scan(
         m_p = m_new
     out = torch.stack(outs).transpose(2, 3).movedim(0, 1).reshape(B, T, H, D)
     return out.to(q.dtype)
+
+
+# ------------------------------ grouped matmul ------------------------------
+
+
+def gmm_ref(
+    lhs: torch.Tensor,  # (M, K) rows sorted by group
+    rhs: torch.Tensor,  # (G, K, N) per-group weights
+    group_sizes: Union[torch.Tensor, Sequence[int]],  # (G,), sum == M
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped matmul: the rows of each group hit their group's ``rhs`` matrix.
+
+    Products and sums in fp32, output in ``lhs``'s type or ``out_dtype``
+    (``repro.kernels.ref.gmm_ref`` semantics). The reference gathers an (M, K,
+    N) weight tensor; this loops over the groups instead, one fp32 product per
+    group's rows, and upcasts one group's weights at a time.
+    """
+    M, K = lhs.shape
+    G, K2, N = rhs.shape
+    sizes = [int(s) for s in (group_sizes.tolist() if torch.is_tensor(group_sizes) else group_sizes)]
+    if K2 != K or len(sizes) != G or sum(sizes) != M or min(sizes, default=0) < 0:
+        raise ValueError(f"gmm_ref: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, group sizes "
+                         f"{sizes}: need matching K, G sizes and a sum of M")
+    out = torch.empty((M, N), dtype=lhs.dtype if out_dtype is None else out_dtype, device=lhs.device)
+    start = 0
+    for g, size in enumerate(sizes):
+        rows = slice(start, start + size)
+        out[rows] = torch.matmul(lhs[rows].float(), rhs[g].float())
+        start += size
+    return out

@@ -4,7 +4,9 @@
 config on the card; ``--smoke`` (the default) the reduced one. There is one
 card, so the reference's mesh and sharding arguments are dropped; a config
 too large for it is cut in depth instead, to whole pattern units
-(``--arch jamba-v0.1-52b --full --layers 8``).
+(``--arch jamba-v0.1-52b --full --layers 8``); granite-moe-3b-a800m and
+xlstm-350m fit whole (``--arch granite-moe-3b-a800m --full``). On the CPU:
+``--smoke --device cpu``.
 """
 
 from __future__ import annotations

@@ -8,19 +8,23 @@ weights. Dispatch is integer work and matches the reference exactly, capacity
 drops included. The reference's sharding hint on the expert axis does nothing
 on one card and is dropped.
 
-The expert matmuls are plain batched products (``torch.bmm``), as they are
-einsums outside any Pallas kernel in the reference; the grouped-matmul kernel
-K4 is a later slice's ``impl`` choice (ROADMAP.md A.4).
+The three expert products run through ``ops.gmm`` on the buffer flattened to
+(E*C, d) rows sorted by expert, one row block of C rows per expert: on the
+card the grouped-matmul kernel K4 (``csrc/gmm.cu``), on the CPU its plain
+version. This is the route the reference's docstring names ("on TPU the
+batched expert matmul lowers to the Pallas grouped-matmul kernel"), where its
+code keeps the einsum equivalent.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import Params, activation_fn, dense_init, truncated_normal
 
@@ -46,40 +50,57 @@ def _stack_init(gen, E, din, dout, dtype, device, lead) -> torch.Tensor:
     return truncated_normal(gen, (*lead, E, din, dout), 1.0 / math.sqrt(din), dtype, device)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` accumulated and returned in fp32, without an fp32 copy of ``b``
-    on the card (the reference's ``preferred_element_type=float32``)."""
-    if a.dtype == torch.float32:
-        return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())  # the fp32-output bmm has no CPU kernel
+_GROUP_IDS: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
-def _expert_ffn(p: Params, xs: torch.Tensor, activation: str) -> torch.Tensor:
-    """Batched expert MLP: xs (E, C, d) -> (E, C, d).
+def _group_ids(E: int, device: torch.device) -> torch.Tensor:
+    """0..E-1 as int32 on ``device``: the group of each row block of C rows.
+    Made once per (E, device), not once per layer and step."""
+    ids = _GROUP_IDS.get((E, device))
+    if ids is None:
+        ids = _GROUP_IDS[(E, device)] = torch.arange(E, dtype=torch.int32, device=device)
+    return ids
 
-    As in the reference, ``up`` and ``gate`` stay fp32 up to the activation;
-    ``h`` and the output are rounded once to the input's type.
+
+def _expert_ffn(p: Params, xs: torch.Tensor, activation: str, impl: str) -> torch.Tensor:
+    """Expert MLP on the (E, C, d) buffer -> its (E*C, d) output rows.
+
+    As in the reference, ``up`` and ``gate`` stay fp32 up to the activation
+    (the products' fp32 output); ``h`` and the output are rounded once to the
+    input's type.
     """
-    up = _bmm_f32(xs, p["w_up"])
+    E, C, d = xs.shape
+    route = ops.resolve_impl(impl, xs)
+    group_ids = _group_ids(E, xs.device)
+    group_sizes = None if route == "cuda" else [C] * E  # only the plain version reads them
+
+    def product(a: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        return ops.gmm(a, w, group_ids, group_sizes, impl=route, out_dtype=out_dtype)
+
+    rows = xs.reshape(E * C, d)
+    up = product(rows, p["w_up"], torch.float32)
     if activation in ("swiglu", "geglu"):
-        gate = _bmm_f32(xs, p["w_gate"])
+        gate = product(rows, p["w_gate"], torch.float32)
         act = F.silu if activation == "swiglu" else activation_fn("gelu")
         h = act(gate) * up
     elif activation == "sq_relu":
         h = torch.square(F.relu(up))
     else:
         h = activation_fn("gelu")(up)
-    return torch.bmm(h.to(xs.dtype), p["w_down"]).to(xs.dtype)
+    return product(h.to(xs.dtype), p["w_down"])
 
 
 def moe_apply(
     p: Params,
     cfg: ArchConfig,
     x: torch.Tensor,  # (B, S, d)
+    *,
+    impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B, S, d), aux load-balancing loss (scalar fp32))."""
+    """Returns (output (B, S, d), aux load-balancing loss (scalar fp32)).
+
+    ``impl`` picks the expert products' route (``ops.gmm``).
+    """
     mc: MoEConfig = cfg.moe  # type: ignore[assignment]
     B, S, d = x.shape
     T = B * S
@@ -117,7 +138,7 @@ def moe_apply(
     buf_idx[slot] = src_token
     xs = xt[buf_idx[: E * capacity]].reshape(E, capacity, d)
 
-    ys = _expert_ffn(p, xs, cfg.activation).reshape(E * capacity, d)
+    ys = _expert_ffn(p, xs, cfg.activation, impl)
 
     # combine: route each kept copy's output back to its token, weighted
     copy_w = top_w.reshape(-1)[order] * keep.float()  # (T*k,)

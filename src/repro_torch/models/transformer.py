@@ -179,10 +179,12 @@ def _device_tokens(params: Params, tokens, device: torch.device) -> torch.Tensor
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
-def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(
+    cfg: ArchConfig, p: Params, x: torch.Tensor, impl: str
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's MLP or MoE sub-layer (pre-norm, residual); the MoE's aux loss or None."""
     if "moe" in p:
-        mo, aux = moe_apply(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm))
+        mo, aux = moe_apply(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm), impl=impl)
         return x + mo, aux
     if "mlp" in p:
         x = x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.activation)
@@ -210,7 +212,7 @@ def apply_unit(
             x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
         else:
             x = mamba_apply(p["mixer"], cfg, x, impl=impl)
-        x, a = _ffn(cfg, p, x)
+        x, a = _ffn(cfg, p, x, impl)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -281,8 +283,9 @@ def decode_step(
 
     Attention against the cache and the one-token mamba, mLSTM and sLSTM
     steps are plain torch, as in the reference, which reaches no kernel here
-    either. The MoE runs
-    its dispatch over the batch's B tokens.
+    either. The MoE runs its dispatch over the batch's B tokens and its expert
+    products through ``ops.gmm`` at ``impl="auto"``: on the card, K4 at one
+    row per expert.
     """
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -308,6 +311,6 @@ def decode_step(
                 x = x + a
             else:
                 x, _ = mamba_decode(p["mixer"], cfg, x, st)
-            x, _ = _ffn(cfg, p, x)
+            x, _ = _ffn(cfg, p, x, "auto")
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(cfg, params, x), cache

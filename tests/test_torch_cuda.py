@@ -10,11 +10,13 @@ import pytest
 import torch
 
 import repro_torch.kernels.flash_attention as fa
+import repro_torch.kernels.gmm as gk
 import repro_torch.kernels.mamba_scan as ms
 import repro_torch.kernels.mlstm as ml
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     attention_ref,
+    gmm_ref,
     mamba_scan_ref,
     mlstm_chunked_scan,
     mlstm_chunkwise_ref,
@@ -263,3 +265,113 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(card):
         ml.mlstm_chunkwise(q, k, v, ig.bfloat16(), fg)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         ml.mlstm_chunkwise(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, ig, fg)
+
+
+# tests/test_kernels.py gmm cases as (group sizes, K, N), with every group one
+# row block: the three even ones, the uneven one; then granite's decode shape
+# (40 experts of one row, K 1536 -> N 512), an uneven ragged case (K and N
+# multiples of 8 but not of a tile; row blocks of 200 rows, cut 128 + 72) and
+# one with rows of 3 per expert
+GMM_CASES = [
+    ([256] * 4, 256, 128),
+    ([128] * 8, 512, 256),
+    ([128] * 2, 128, 128),
+    ([256, 128, 384], 256, 128),
+    ([1] * 40, 1536, 512),
+    ([200] * 3, 200, 72),
+    ([3] * 5, 40, 24),
+]
+# fp32 sums in another order: the bar of tests/test_kernels.py; a bf16 output
+# may round the other way: one bf16 ulp (2^-8) and some
+GMM_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+def _gmm_inputs(card, sizes, K, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    lhs = torch.from_numpy(rng.standard_normal((sum(sizes), K)).astype(np.float32)).to(card, dt)
+    rhs = torch.from_numpy(rng.standard_normal((len(sizes), K, N)).astype(np.float32)).to(card, dt)
+    return lhs, rhs
+
+
+def _row_blocks(card, sizes):
+    """Group ids of equal row blocks: the greatest common size, each group cut into it."""
+    bm = int(np.gcd.reduce(sizes))
+    return torch.tensor(np.repeat(np.arange(len(sizes)), np.asarray(sizes) // bm), dtype=torch.int32,
+                        device=card)
+
+
+@pytest.mark.parametrize("out_dtype", [None, "float32"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GMM_CASES, ids=[f"case{i}" for i in range(len(GMM_CASES))])
+def test_gmm_kernel_matches_plain_version(card, case, dtype, out_dtype):
+    sizes, K, N = case
+    lhs, rhs = _gmm_inputs(card, sizes, K, N, dtype)
+    want = lhs.dtype if out_dtype is None else getattr(torch, out_dtype)
+    out = gk.gmm(lhs, rhs, _row_blocks(card, sizes), out_dtype=want)
+    ref = gmm_ref(lhs, rhs, sizes, out_dtype=want)
+    torch.cuda.synchronize()
+    assert out.dtype == want and out.shape == (sum(sizes), N)
+    tol = GMM_TOL["bfloat16" if want == torch.bfloat16 else "float32"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sizes", [[5] * 3, [40] * 2], ids=["small_tile", "large_tile"])
+def test_gmm_kernel_fp32_takes_any_K_and_N(card, sizes):
+    lhs, rhs = _gmm_inputs(card, sizes, 37, 19, "float32", seed=5)
+    out = gk.gmm(lhs, rhs, _row_blocks(card, sizes))
+    torch.testing.assert_close(out, gmm_ref(lhs, rhs, sizes), atol=1e-3, rtol=1e-3)
+
+
+def test_gmm_kernel_reads_each_row_block_group(card):
+    """Row blocks of one group need not be adjacent, nor groups in order."""
+    lhs, rhs = _gmm_inputs(card, [64] * 4, 64, 64, "bfloat16", seed=1)
+    ids = torch.tensor([2, 0, 2, 1], dtype=torch.int32, device=card)
+    out = gk.gmm(lhs, rhs, ids, out_dtype=torch.float32)
+    for i, g in enumerate(ids.tolist()):
+        rows = slice(64 * i, 64 * (i + 1))
+        torch.testing.assert_close(out[rows], lhs[rows].float() @ rhs[g].float(), atol=1e-3, rtol=1e-3)
+
+
+def test_gmm_kernel_poisons_rows_of_a_bad_group_id(card):
+    lhs, rhs = _gmm_inputs(card, [32] * 2, 64, 64, "float32", seed=2)
+    out = gk.gmm(lhs, rhs, torch.tensor([0, 5], dtype=torch.int32, device=card))
+    assert bool(torch.isfinite(out[:32]).all()) and bool(torch.isnan(out[32:]).all())
+
+
+def test_gmm_auto_on_card_launches_the_kernel(card):
+    lhs, rhs = _gmm_inputs(card, [64] * 2, 64, 32, "float32", seed=3)
+    ids = torch.arange(2, dtype=torch.int32, device=card)
+    before = gk.LAUNCHES
+    out = ops.gmm(lhs, rhs, ids, [64, 64], impl="auto")
+    assert gk.LAUNCHES == before + 1
+    torch.testing.assert_close(out, ops.gmm(lhs, rhs, ids, [64, 64], impl="ref"), atol=1e-3, rtol=1e-3)
+    assert gk.LAUNCHES == before + 1
+
+
+def test_gmm_kernel_rejects_what_it_does_not_take(card):
+    lhs, rhs = _gmm_inputs(card, [64] * 2, 64, 32, "bfloat16", seed=4)
+    ids = torch.arange(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        gk.gmm(lhs.cpu(), rhs, ids)
+    with pytest.raises(ValueError, match="group_ids lies on cpu"):
+        gk.gmm(lhs, rhs, ids.cpu())
+    with pytest.raises(TypeError, match="float16"):
+        gk.gmm(lhs.half(), rhs.half(), ids)
+    with pytest.raises(TypeError, match="for both"):
+        gk.gmm(lhs, rhs.float(), ids)
+    with pytest.raises(TypeError, match="out_dtype"):
+        gk.gmm(lhs.float(), rhs.float(), ids, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="int32"):
+        gk.gmm(lhs, rhs, ids.long())
+    with pytest.raises(ValueError, match="must be contiguous"):
+        gk.gmm(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2), ids)
+    with pytest.raises(ValueError, match="equal row blocks"):
+        gk.gmm(lhs, rhs, torch.arange(3, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="K="):
+        gk.gmm(lhs[:, :48].contiguous(), rhs, ids)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gk.gmm(lhs[:, :60].contiguous(), rhs[:, :60].contiguous(), ids)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        buf = torch.empty(128 * 64 + 8, dtype=torch.bfloat16, device=card)
+        gk.gmm(buf[4:4 + 128 * 64].view(128, 64), rhs, ids)  # contiguous, 8 bytes off
