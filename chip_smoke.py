@@ -8,8 +8,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 
 1. device   — the card, the toolchain, the kernel build (seconds, ptxas -v).
 2. kernels  — flash attention against its plain PyTorch version on the card:
-              the attention cases of tests/test_kernels.py plus the gemma3-1b
-              prefill shapes (tolerance 2e-5 fp32, 2e-2 bf16).
+              the attention cases of tests/test_kernels.py, a bf16 twin of
+              each fp32 one (the wgmma route), and the gemma3-1b prefill
+              shapes (tolerance 2e-5 fp32, 2e-2 bf16; bf16 also within
+              1e-2 of the exact value row by row, where a stand-in that
+              rounds P to fp8 must fail).
 3. prefill  — full-width gemma3-1b ``forward`` on B=2, S=2048: fp32 kernel
               vs plain logits, the bf16 main path (launch counts, tokens/s,
               top-1 agreement with the plain path), kernel times vs bound.
@@ -111,6 +114,14 @@ GEMMA_SHAPES = {
 }
 LAYERS_PER_FORWARD = {"local": 22, "global": 4}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 attention, second bar: the largest over (b, s, h) rows of
+# |out - exact| / |exact| (norms over D), exact being the plain version in fp32
+# on the same bf16 inputs, before any rounding. A row that attends many keys
+# has outputs far below 2e-2, so the first bar cannot see an error that is
+# systematic there; this one scales with each row. Rounding P and the output
+# to bf16 gives a few 1e-3; a plain stand-in that rounds P to fp8 instead
+# must fail it (checked at every shape), so the bar is known to bite.
+ROW_REL_TOL = 1e-2
 # fp32 full-width forward, kernel vs plain attention: max |diff| <= LOGIT_RTOL * max |plain|
 LOGIT_RTOL = 1e-5
 TOP1_MIN = 0.99
@@ -230,7 +241,7 @@ def main() -> int:
     # flash attention's row keeps its first path's numbers (gemma3-1b, per launch
     # over a forward's 26); the jamba and granite paths' stand beside them under by_path
     fa_row.update({k: gemma_fa[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")})
+                                            "library_ms", "tflops")})
     gemma_fa["max_abs_err"] = fa_row["max_abs_err"]
     fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa, GRANITE: granite_fa}
 
@@ -287,9 +298,24 @@ def phase_device(torch) -> str:
         build_wall_s=wall,
         builds={b.name: {"seconds": b.seconds, "cached": b.cached, "ptxas": b.ptxas}
                 for b in built.values()},
-        flash_attention_smem_bytes={d: smem_bytes(d) for d in HEAD_DIMS},
+        flash_attention_smem_bytes={str(dt).removeprefix("torch."): {d: smem_bytes(d, dt) for d in HEAD_DIMS}
+                                    for dt in (torch.float32, torch.bfloat16)},
+        # K1's bf16 route, per head dim: ptxas's registers at launch (the
+        # consumers take 240, or 104 at D 64, by setmaxnreg) and spills
+        flash_attention_wgmma_ptxas=_wgmma_ptxas(built["flash_attention"].ptxas),
     )
     return smi
+
+
+def _wgmma_ptxas(lines) -> dict:
+    """K1's bf16 kernels' ptxas lines (``_build.Built.ptxas``), by head dim."""
+    out, d = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            d = next((x for x in ("64", "128", "256") if f"fa_fwd_wgmma_kernelILi{x}E" in ln), None)
+        elif d is not None:
+            out.setdefault(d, []).append(ln)
+    return out
 
 
 def _qkv(torch, dev, case, seed):
@@ -314,6 +340,8 @@ def phase_kernels(torch, dev) -> dict:
 
     rows, gemma_err = [], 0.0
     cases = [(f"attn_case_{i}", c) for i, c in enumerate(ATTN_CASES)]
+    cases += [(f"attn_case_{i}_bf16", c[:-1] + ("bfloat16",)) for i, c in enumerate(ATTN_CASES)
+              if c[-1] == "float32"]
     cases += [(f"gemma3_1b_{k}", c) for k, c in GEMMA_SHAPES.items()]
     for seed, (name, case) in enumerate(cases):
         q, k, v = _qkv(torch, dev, case, seed)
@@ -322,13 +350,17 @@ def phase_kernels(torch, dev) -> dict:
         torch.cuda.synchronize()
         tol = TOL[case[-1]]
         err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+        rel = _bf16_row_rel(torch, q, k, v, case, out) if case[-1] == "bfloat16" else {"ok": True}
+        ok = ok and rel.pop("ok")
         rows.append({"case": name, "shape": case[:6], "dtype": case[-1], "max_abs_err": err,
-                     "tol": tol, "ok": bool(ok)})
+                     "tol": tol, **rel, "ok": ok})
+        del q, k, v, out, ref
         if name.startswith("gemma"):
             gemma_err = max(gemma_err, err)
     emit("kernels", cases=rows)
-    check(all(r["ok"] for r in rows), "flash_attention disagrees with attention_ref")
+    check(all(r["ok"] for r in rows), "flash_attention disagrees with attention_ref: "
+          f"{[r for r in rows if not r['ok']]}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -336,6 +368,54 @@ def phase_kernels(torch, dev) -> dict:
         "replaces": "src/repro/kernels/flash_attention.py:157",
         "max_abs_err": gemma_err,
     }
+
+
+def _row_rel(torch, out, exact) -> float:
+    """Largest |out - exact| / |exact| over rows (norms over the last axis); a
+    row whose exact value is 0 must be 0."""
+    diff = (out.float() - exact).norm(dim=-1)
+    return (diff / exact.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _attention_p_rounded(torch, q, k, v, case, p_dtype):
+    """Plain attention in fp32 that rounds the unnormalised probabilities P to
+    ``p_dtype`` before P·V and sums the row's weights from P unrounded, as the
+    bf16 route does; the output in bf16. A stand-in for the second bar only."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    causal, window, softcap, q_offset = case[6:10]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, Sq, Hkv, Hq // Hkv, D), k.float())
+    s = s / D ** 0.5
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True).clamp_min(-1e30))
+    del s
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), v.float())
+    o = torch.where(l > 0, o / l.clamp_min(1e-30), 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(torch.bfloat16)
+
+
+def _bf16_row_rel(torch, q, k, v, case, out) -> dict:
+    """The second bf16 bar (ROW_REL_TOL) for K1's output ``out`` on q, k, v,
+    beside the readings of the plain stand-in with P in bf16 (what the kernel
+    should read) and in fp8 (the control, which must fail the bar)."""
+    from repro_torch.kernels.ref import attention_ref
+
+    exact = attention_ref(q.float(), k.float(), v.float(), **_kw(case))
+    rel = _row_rel(torch, out, exact)
+    stand_in = _row_rel(torch, _attention_p_rounded(torch, q, k, v, case, torch.bfloat16), exact)
+    control = _row_rel(torch, _attention_p_rounded(torch, q, k, v, case, torch.float8_e4m3fn), exact)
+    return {"row_rel_err": rel, "row_rel_tol": ROW_REL_TOL, "row_rel_stand_in_bf16_p": stand_in,
+            "row_rel_control_fp8_p": control, "ok": rel <= ROW_REL_TOL < control}
 
 
 def _cuda_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -465,13 +545,15 @@ def phase_prefill(torch, dev) -> dict:
     for name, case in GEMMA_SHAPES.items():
         q, k, v = _qkv(torch, dev, case, seed=100)
         kw = _kw(case)
-        ms = _cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        ms = _graph_ms(torch, kernel)
         plain_ms = _cuda_ms(torch, lambda: attention_ref(q, k, v, **kw))
         lib = _sdpa(torch, q, k, v, case)
         lib_err = (lib().transpose(1, 2).float() - attention_ref(q, k, v, **kw).float()).abs().max().item()
-        library_ms = _cuda_ms(torch, lib)
+        library_ms = _graph_ms(torch, lib)
         bound_ms, bound_by, flops, nbytes = _bound_ms(case)
-        shapes[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        shapes[name] = {"ms": ms, "ms_eager": _cuda_ms(torch, kernel), "plain_ms": plain_ms,
+                        "library_ms": library_ms, "library_ms_eager": _cuda_ms(torch, lib),
                         "library_max_abs_err": lib_err, "bound_ms": bound_ms,
                         "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                         "tflops": flops / ms / 1e9}
@@ -499,6 +581,7 @@ def phase_prefill(torch, dev) -> dict:
         "bound_ms": agg["bound_ms"] / n_calls,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": agg["library_ms"] / n_calls,
+        "tflops": agg["flops"] / agg["ms"] / 1e9,
     }
 
 
@@ -632,8 +715,9 @@ def _scan_bound(case):
 
 
 def _fa_at_shape(torch, dev, case, seed) -> dict:
-    """K1 against attention_ref at one path's attention shape (bf16 bar), with
-    its kernel, plain, torch's fused attention and bound times."""
+    """K1 against attention_ref at one path's attention shape (both bf16 bars),
+    with its kernel (in a CUDA graph, and eager), plain, torch's fused
+    attention and bound times."""
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.kernels.ref import attention_ref
 
@@ -643,16 +727,24 @@ def _fa_at_shape(torch, dev, case, seed) -> dict:
     tol = TOL[case[-1]]
     err = (out.float() - ref.float()).abs().max().item()
     ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
-    del out, ref
+    del ref
+    rel = _bf16_row_rel(torch, q, k, v, case, out)
+    ok = ok and rel.pop("ok")
+    del out
     bound, by, flops, _ = _bound_ms(case)
+    kernel, lib = (lambda: fa.flash_attention(q, k, v, **kw)), _sdpa(torch, q, k, v, case)
+    ms = _graph_ms(torch, kernel)
     row = {
-        "shape": case[:6], "dtype": case[-1], "max_abs_err": err, "tol": tol, "ok": ok,
-        "ms": _cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+        "shape": case[:6], "dtype": case[-1], "max_abs_err": err, "tol": tol, **rel, "ok": ok,
+        "ms": ms,
+        "ms_eager": _cuda_ms(torch, kernel),
         "plain_ms": _cuda_ms(torch, lambda: attention_ref(q, k, v, **kw), iters=5, warmup=1),
-        "library_ms": _cuda_ms(torch, _sdpa(torch, q, k, v, case)),
+        "library_ms": _graph_ms(torch, lib),
+        "library_ms_eager": _cuda_ms(torch, lib),
         "bound_ms": bound,
         "bound_by": by,
         "gflop": flops / 1e9,
+        "tflops": flops / ms / 1e9,
     }
     del q, k, v
     torch.cuda.empty_cache()
@@ -700,7 +792,8 @@ def phase_jamba_kernels(torch, dev):
     jamba_fa = _fa_at_shape(torch, dev, JAMBA_ATTN, seed=101)
     emit("jamba_kernels", mamba_scan_cases=rows, flash_attention_jamba_shape=jamba_fa)
     check(jamba_fa.pop("ok"), f"flash_attention disagrees with attention_ref at the jamba shape: "
-          f"{jamba_fa['max_abs_err']}")
+          f"max |diff| {jamba_fa['max_abs_err']}, row {jamba_fa['row_rel_err']}, "
+          f"fp8 control {jamba_fa['row_rel_control_fp8_p']}")
     del args
     torch.cuda.empty_cache()
     return ms_row, jamba_fa
@@ -1107,7 +1200,8 @@ def phase_xlstm_serve(torch) -> None:
 # ----------------------------- granite phases --------------------------------
 
 # the kernels' launches as the profiler names them, for device time by kernel
-_GROUPS = {"gmm": ("gmm_bf16_kernel", "gmm_f32_kernel"), "flash_attention": ("fa_fwd_kernel",),
+_GROUPS = {"gmm": ("gmm_bf16_kernel", "gmm_f32_kernel"),
+           "flash_attention": ("fa_fwd_kernel", "fa_fwd_wgmma_kernel"),
            "mamba_scan": ("mamba_scan_kernel",)}
 
 
@@ -1247,7 +1341,8 @@ def phase_granite_attention(torch, dev) -> dict:
     granite_fa = _fa_at_shape(torch, dev, GRANITE_ATTN, seed=102)
     emit("granite_attention", flash_attention_granite_shape=granite_fa)
     check(granite_fa.pop("ok"), f"flash_attention disagrees with attention_ref at the granite shape: "
-          f"{granite_fa['max_abs_err']}")
+          f"max |diff| {granite_fa['max_abs_err']}, row {granite_fa['row_rel_err']}, "
+          f"fp8 control {granite_fa['row_rel_control_fp8_p']}")
     return granite_fa
 
 

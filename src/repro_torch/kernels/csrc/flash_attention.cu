@@ -1,34 +1,81 @@
-// Flash attention forward for Hopper (sm_90a), fp32 arithmetic.
+// Flash attention forward for Hopper (sm_90a): a bf16 route on the tensor
+// cores (wgmma fed by TMA) and an fp32 route on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (body _fa_kernel, pl.pallas_call at flash_attention.py:157). It computes the
-// same function: softmax(Q K^T * scale) V for q (B,Sq,Hq,D) and k, v
-// (B,Sk,Hkv,D), with the online-softmax state (m, l, acc) in fp32; GQA (query
-// head h reads kv head h / (Hq/Hkv), no kv copies); causal and sliding-window
-// masks from absolute positions shifted by q_offset; an optional tanh softcap;
-// no work on kv tiles that are fully masked; rows whose l stays 0 return 0.
+// (body _fa_kernel, pl.pallas_call at flash_attention.py:157). Both routes
+// compute the same function: softmax(Q K^T * scale) V for q (B,Sq,Hq,D) and
+// k, v (B,Sk,Hkv,D), with the online-softmax state (m, l, acc) in fp32; GQA
+// (query head h reads kv head h / (Hq/Hkv), no kv copies); causal and
+// sliding-window masks from absolute positions shifted by q_offset; an
+// optional tanh softcap; no work on kv tiles that are fully masked; rows whose
+// l stays 0 return 0; any Sq and Sk; q, k, v read as strided rows of the
+// (B, S, H, D) layout, so the wrapper makes no transposed copies.
 //
-// Design. The TPU kernel walks kv blocks on a sequential grid axis and keeps
-// (m, l, acc) in VMEM scratch between grid steps. Hopper runs blocks in
-// parallel and in no order, so here one thread block owns one (b, h, 64-row
-// q tile) and loops over the kv tiles itself, with (m, l, acc) in registers.
-// The loop is clipped to [max(0, q_lo - window + 1), q_hi] (causal), so a
-// window-512 layer visits about 9 tiles of 64 keys rather than all of them.
-// Q, K and V tiles are staged in shared memory as fp32 (up to 214 KB at
-// D = 256, hence one block of 256 threads per SM); the ragged last q tile and
-// kv tile are masked, so any Sq and Sk work. Inputs are read as strided rows
-// of the (B, S, H, D) layout: the wrapper makes no transposed copies.
+// The TPU kernel walks kv blocks on a sequential grid axis and keeps (m, l,
+// acc) in VMEM scratch between grid steps. Hopper runs blocks in parallel and
+// in no order, so here one thread block owns one (b, h, q tile) and loops over
+// the kv tiles itself, with (m, l, acc) in registers. The loop is clipped to
+// the tiles holding a key some row of the block may attend, [max(0, q_lo -
+// window + 1), q_hi] when causal, so a window-512 layer at S 2048 visits ~10
+// of its 32 kv tiles (bf16, 64 keys).
 //
-// What bounds it. At the gemma3-1b prefill shapes (B=2, S=2048, Hq=4, Hkv=1,
-// D=256, bf16) the work is 4*D FLOP per attended (q, k) pair: ~17 GFLOP for a
-// causal layer against ~21 MB of q/k/v/o, so the card's bound is its tensor
-// rate (operations, not bytes). This first version does the products on the
-// fp32 CUDA cores (so fp32 inputs meet a 2e-5 tolerance) and is therefore far
-// from that bound; tensor cores (mma.sync / wgmma) and TMA loads come later.
+// What bounds it. At the paths' prefill shapes (B=2, S=2048; gemma3-1b Hq 4,
+// Hkv 1, D 256; granite Hq 24, Hkv 8, D 64; jamba Hq 32, Hkv 8, D 128) the
+// work is 4*D FLOP per attended (q, k) pair against tens of MB of q/k/v/o,
+// hundreds of FLOP a byte, so the bound is the tensor rate (operations). A
+// kernel comes near it only through wgmma fed from shared memory that TMA
+// fills while the tensor cores work.
+//
+// bf16 route (fa_fwd_wgmma_kernel): one block per (b, h, 128-row q tile) of
+// three warpgroups, the q tiles launched heaviest first (the causal
+// triangle's last tile first, so it leaves no tail).
+// * Warpgroup 0 hands its registers to the others (setmaxnreg) and one of its
+//   threads issues every load: Q once, then K and V tiles into rings of
+//   full/empty mbarriers, each tile as D/64 TMA boxes of 64 columns in
+//   128-byte swizzle; rows past Sq or Sk arrive as zeros. Tiles (keys x
+//   stages): D 64 64 x 4, D 128 128 x 3, D 256 64 x 2 (80 / 224 / 192 KB).
+// * Warpgroups 1 and 2 own 64 q rows each. S = Q K^T is wgmma m64n{BK}k16
+//   with Q and K from shared memory (both K-major: rows are d-contiguous). The
+//   online softmax runs on the accumulator registers: a row is held by 4
+//   lanes (2 shuffles), p = exp2(s * c - m * c) as one FFMA and one ex2 with
+//   c = scale * log2(e), masks only on the tiles that straddle the diagonal,
+//   the window's edge or Sk (a masked score is -inf; the running max starts
+//   at the finite -1e30, so exp2(m_prev - m_new) is never inf - inf). P is
+//   rounded to bf16 in place, where the accumulator layout is already wgmma's
+//   register-A layout, and O += P V is wgmma m64n{D}k16 with A from registers
+//   and V from shared memory (MN-major: the descriptor's transpose bit), so P
+//   makes no trip through shared memory. O (64 x D fp32, 128 registers a
+//   thread at D 256) stays in registers; the epilogue divides by l and rounds
+//   to bf16 once (a row with l = 0 writes 0).
+// * Overlap: tile i's Q K^T is issued together with tile i-1's P V, so tile
+//   i's softmax runs while the tensor cores do that P V; and at D 128 and 256
+//   the two warpgroups take turns issuing (ping-pong on two named barriers),
+//   so one's softmax runs beside the other's products. At D 64 two blocks
+//   share an SM instead (104 registers a consumer thread, so BK 64); their
+//   four warpgroups interleave on their own.
+// * Registers: a consumer thread holds O, the next tile's S and P at once
+//   (~200 at D 256), past the 168 that 384 threads get at launch; setmaxnreg
+//   gives it 240 of the block's pool. ptxas allocates by that only where the
+//   code after setmaxnreg is the consumer's alone: an mbarrier wait written as
+//   a C++ loop (shared by both roles once inlined) made it allocate the
+//   whole kernel at 168, spill and serialize the wgmmas; the wait is one PTX
+//   block (hopper.cuh).
+// * Rounding P to bf16 before P V is what Hopper flash attentions do; the TPU
+//   kernel keeps p in fp32 (flash_attention.py:75-77, :95-99). The difference
+//   stays inside the bf16 bar (2e-2) of tests/test_kernels.py.
+// * TMA needs a 16-byte-aligned base and byte strides that are multiples of
+//   16: the wrapper checks both and raises otherwise (no fallback).
+//
+// fp32 route (fa_fwd_kernel): one block of 256 threads per (b, h, 64-row q
+// tile), Q, K and V tiles staged in shared memory as fp32 (up to 214 KB at
+// D 256, so one block an SM), the products as fp32 FMAs on the CUDA cores, so
+// that fp32 inputs meet a 2e-5 tolerance, which bf16 or TF32 operands cannot.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,7 +98,7 @@ struct Args {
   float scale, softcap;          // softcap <= 0: no softcap
 };
 
-// Four consecutive elements of T as a float4 (16 bytes of fp32, 8 of bf16).
+// Four consecutive floats as a float4 (16 bytes).
 template <typename T>
 struct Vec4;
 
@@ -62,24 +109,6 @@ struct Vec4<float> {
   }
   static __device__ __forceinline__ void store(float* p, float4 x) {
     *reinterpret_cast<float4*>(p) = x;
-  }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
   }
 };
 
@@ -276,46 +305,481 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const Args& a, int B, int D, cudaStream_t stream) {
+cudaError_t dispatch_f32(const Args& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
-    case 256: return launch<T, 256>(a, B, stream);
+    case 64: return launch<float, 64>(a, B, stream);
+    case 128: return launch<float, 128>(a, B, stream);
+    case 256: return launch<float, 256>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Dynamic shared memory a block uses at head dim D (0 if D is not built).
-extern "C" int fa_smem_bytes(int D) {
-  switch (D) {
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    case 256: return smem_bytes<256>();
+// =========================== bf16 route: wgmma + TMA ===========================
+
+namespace wg {
+
+constexpr int BQ = 128;        // q rows per block: two consumer warpgroups of 64
+// warpgroup 0 loads (one thread), warpgroups 1 and 2 compute; setmaxnreg
+// moves the loader's registers to the consumers
+constexpr int NTHREADS = 384;
+constexpr int CONSUMERS = 256;  // every consumer thread releases a stage
+constexpr int LOADER_REGS = 24;
+constexpr int ATOM = 128;       // bytes of one swizzled row: 64 bf16 columns
+constexpr int PLAN_LEN = 14;    // per tensor: dims[4], byte strides[3], box[4], slots[3]
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  // D 64: two blocks an SM, each within half the registers (104 a consumer
+  // thread), so BK 64 (at BK 128, S, O and P alone take 128); their four
+  // warpgroups interleave on their own, so no ping-pong. D 128 and 256: one
+  // block an SM.
+  static constexpr int BK = D == 128 ? 128 : 64;  // keys per ring stage
+  static constexpr int STAGES = D == 64 ? 4 : (D == 128 ? 3 : 2);  // depth of the K and V rings
+  static constexpr int BLOCKS = D == 64 ? 2 : 1;  // blocks an SM
+  static constexpr bool PINGPONG = BLOCKS == 1;   // the two warpgroups take turns at the tensor cores
+  // the registers a consumer thread gets: setmaxnreg draws from the block's own
+  // pool, its launch registers (65536 / BLOCKS, 8 a thread at a time) less the loaders'
+  static constexpr int CONSUMER_REGS =
+      ((65536 / BLOCKS / NTHREADS) / 8 * 8 * NTHREADS - LOADER_REGS * 128) / 256 / 8 * 8;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one K or one V tile
+  // slack to align the tiles to a 1024-byte swizzle atom, Q, the K ring, the
+  // V ring, then the barriers: Q full, and full and empty for each K and V stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES);
+  static_assert(SMEM <= 232448 / BLOCKS, "tiles do not fit in one SM's shared memory");
+};
+
+// The tensor-map dimension (1..3) of a tensor's head, row and batch axes: the
+// wrapper orders them by stride.
+struct Slots {
+  int h, s, b;
+};
+
+struct Args {
+  __nv_bfloat16* o;  // contiguous (B, Sq, Hq, D)
+  int Sq, Sk, Hq, Hkv, n_qtiles;
+  int causal, window, q_offset;  // window <= 0: no window
+  float scale, softcap;          // softcap <= 0: no softcap
+  Slots q, k, v;
+};
+
+// A ring of tiles with a full and an empty barrier for each, as shared-memory
+// addresses: stage s is at tiles + s * bytes, its barriers at full + 8 s, empty + 8 s.
+struct Ring {
+  uint32_t tiles, full, empty;
+};
+
+__device__ __forceinline__ int pick(int dim, Slots sl, int h, int row, int b) {
+  return dim == sl.h ? h : (dim == sl.s ? row : b);
+}
+
+// The D/64 boxes of rows [row, row + rows) of head h, batch b into a tile of
+// D/64 column blocks, each `rows` x 128 bytes.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, int rows, const CUtensorMap* map, uint32_t bar,
+                                          Slots sl, int h, int row, int b) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb)
+    hopper::tma_load_4d(dst + cb * rows * ATOM, map, bar, cb * 64, pick(1, sl, h, row, b),
+                        pick(2, sl, h, row, b), pick(3, sl, h, row, b));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower column
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S = Q K^T of one kv tile for one warpgroup: D/16 steps of 16 columns, 4 to
+// a 128-byte swizzle row; both operands K-major. Issued, not waited for.
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = hopper::sw128_desc(q + (kk / 4) * BQ * ATOM + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = hopper::sw128_desc(k + (kk / 4) * BK * ATOM + (kk % 4) * 32, 16, 1024);
+    if constexpr (BK == 128) {
+      if (kk == 0) hopper::wgmma_ss_m64n128k16_set<0, 0>(s, da, db);
+      else hopper::wgmma_ss_m64n128k16<0, 0>(s, da, db, 1);
+    } else {
+      if (kk == 0) hopper::wgmma_ss_m64n64k16_set<0, 0>(s, da, db);
+      else hopper::wgmma_ss_m64n64k16<0, 0>(s, da, db, 1);
+    }
+  }
+}
+
+// O += P V of one kv tile (O = P V for the first: O is never zeroed, so its
+// registers hold nothing live before): BK/16 steps of 16 keys (2048 bytes of
+// V), P from registers; V is MN-major (transposed), its 64-column blocks
+// BK * 128 bytes apart. Issued, not waited for.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BK / 16][4], uint32_t v,
+                                         bool first) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = hopper::sw128_desc(v + kk * 16 * ATOM, BK * ATOM, 1024);
+    const int acc = !first || kk > 0;
+    if constexpr (D == 64) hopper::wgmma_rs_m64n64k16<1>(o, p[kk], db, acc);
+    else if constexpr (D == 128) hopper::wgmma_rs_m64n128k16<1>(o, p[kk], db, acc);
+    else hopper::wgmma_rs_m64n256k16<1>(o, p[kk], db, acc);
+  }
+}
+
+// One kv tile's scores for this thread's rows (qpos0, qpos0 + 8): softcapped,
+// masked to -inf where MASK, the running max m (in score units) and sum l
+// updated (alpha: the factor on the old state), and the scores replaced by
+// p = 2^((s - m) * mult) in fp32, one FFMA and one ex2 each: mult is
+// scale * log2(e) (softcap * log2(e) with a softcap), positive. In the
+// accumulator layout, s[4j + e] is row qpos0 + 8 (e >> 1), key
+// k0 + 8j + kcol + (e & 1); l is this thread's share of the row sum.
+template <int BK, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int kcol, int qpos0,
+                                             const Args& a) {
+  const bool cap = a.softcap > 0.f;
+  const float mult = (cap ? a.softcap : a.scale) * LOG2E;
+  const float cap_in = cap ? a.scale / a.softcap : 0.f;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = cap ? tanhf(s[4 * j + e] * cap_in) : s[4 * j + e];
+      if (MASK) {
+        const int kpos = k0 + 8 * j + kcol + (e & 1);
+        const int qpos = qpos0 + 8 * (e >> 1);
+        const bool ok = kpos < a.Sk && (!a.causal || kpos <= qpos) &&
+                        (a.window <= 0 || kpos > qpos - a.window);
+        x = ok ? x : -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float neg_m[2];  // -m * mult, the FFMA's addend
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2((m[r] - m_new) * mult);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+    neg_m[r] = -m_new * mult;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], mult, neg_m[e >> 1]));
+      s[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+                                        const Args& a, uint32_t sQ, uint32_t q_full, Ring K, Ring V,
+                                        int b, int h, int hk, int q0, int t0, int nt) {
+  using T = Tile<D>;
+  constexpr int STAGES = T::STAGES;
+  hopper::tma_prefetch_map(tk);
+  hopper::tma_prefetch_map(tv);
+  hopper::mbar_expect_tx(q_full, T::Q_BYTES);
+  load_tile<D>(sQ, BQ, tq, q_full, a.q, h, q0, b);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % STAGES;
+    const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;  // the stage's previous tile is consumed
+    const int k0 = (t0 + i) * T::BK;
+    hopper::mbar_wait(K.empty + 8 * s, free_parity);
+    hopper::mbar_expect_tx(K.full + 8 * s, T::KV_BYTES);
+    load_tile<D>(K.tiles + s * T::KV_BYTES, T::BK, tk, K.full + 8 * s, a.k, hk, k0, b);
+    hopper::mbar_wait(V.empty + 8 * s, free_parity);
+    hopper::mbar_expect_tx(V.full + 8 * s, T::KV_BYTES);
+    load_tile<D>(V.tiles + s * T::KV_BYTES, T::BK, tv, V.full + 8 * s, a.v, hk, k0, b);
+  }
+}
+
+// One consumer warpgroup: 64 q rows. Tile i's S = Q K_i^T is issued together
+// with O += P_{i-1} V_{i-1}, so the softmax of tile i runs while the tensor
+// cores do the previous tile's P V.
+template <int D>
+__device__ __forceinline__ void consume(const Args& a, uint32_t sQ, uint32_t q_full, Ring K, Ring V,
+                                        int w, int b, int h, int q0, int t0, int nt) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK, STAGES = T::STAGES;
+  const int t = threadIdx.x % 128;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4;  // rows r0 and r0 + 8 of the warpgroup's 64
+  const int kcol = 2 * (t % 4);                  // first of two columns in each 8-column block
+  const int wq_lo = a.q_offset + q0 + 64 * w;    // position of the warpgroup's first row
+  const int qpos0 = wq_lo + r0;
+  const uint32_t qw = sQ + w * 64 * ATOM;
+
+  float o[D / 2];  // set by the first P V; read only where l > 0
+  float s[BK / 2];
+  uint32_t p[BK / 16][4];
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, alpha[2];
+
+  // the tile's scores to p (bf16, wgmma's A fragment: 16 keys, two 8-column
+  // blocks, a step); masks only where the tile straddles the diagonal, the
+  // window's edge or Sk
+  auto softmax = [&](int i) {
+    const int k0 = (t0 + i) * BK;
+    const bool edge = k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wq_lo) ||
+                      (a.window > 0 && k0 < wq_lo + 64 - a.window);
+    if (edge) softmax_tile<BK, true>(s, m, l, alpha, k0, kcol, qpos0, a);
+    else softmax_tile<BK, false>(s, m, l, alpha, k0, kcol, qpos0, a);
+  };
+  auto to_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  auto rescale = [&]() {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  };
+
+  // Ping-pong: the two warpgroups take turns issuing their wgmmas, so that one
+  // runs its softmax while the other's products fill the tensor cores. A turn
+  // is a named barrier of both warpgroups (ids 1 + w): one waits on its own,
+  // the other arrives; warpgroup 0 goes first. Each has nt + 1 turns.
+  auto my_turn = [&]() {
+    if constexpr (T::PINGPONG) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+  };
+  auto pass_turn = [&](bool last) {
+    if constexpr (T::PINGPONG)
+      if (!(last && w == 1)) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+  };
+  if (T::PINGPONG && w == 1 && nt > 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+
+  if (nt > 0) {
+    hopper::mbar_wait(q_full, 0);
+    hopper::mbar_wait(K.full, 0);
+    my_turn();
+    hopper::wgmma_fence();
+    issue_qk<D, BK>(s, qw, K.tiles);
+    hopper::wgmma_commit();
+    pass_turn(false);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::mbar_arrive(K.empty);
+    softmax(0);
+    to_p();
+  }
+  for (int i = 1; i < nt; ++i) {
+    const int st = i % STAGES, prev = (i - 1) % STAGES;
+    hopper::mbar_wait(K.full + 8 * st, (i / STAGES) & 1);
+    hopper::mbar_wait(V.full + 8 * prev, ((i - 1) / STAGES) & 1);
+    my_turn();
+    hopper::wgmma_fence();
+    issue_qk<D, BK>(s, qw, K.tiles + st * T::KV_BYTES);
+    hopper::wgmma_commit();
+    issue_pv<D, BK>(o, p, V.tiles + prev * T::KV_BYTES, i == 1);
+    hopper::wgmma_commit();
+    pass_turn(false);
+    hopper::wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 may still run
+    hopper::fence_regs(s);
+    hopper::mbar_arrive(K.empty + 8 * st);
+    softmax(i);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(p);
+    hopper::mbar_arrive(V.empty + 8 * prev);
+    rescale();
+    to_p();
+  }
+  if (nt > 0) {
+    const int last = (nt - 1) % STAGES;
+    hopper::mbar_wait(V.full + 8 * last, ((nt - 1) / STAGES) & 1);
+    my_turn();
+    hopper::wgmma_fence();
+    issue_pv<D, BK>(o, p, V.tiles + last * T::KV_BYTES, nt == 1);
+    hopper::wgmma_commit();
+    pass_turn(true);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(p);
+  }
+
+  // out = O / l, l summed over the row's 4 lanes; a row with l == 0 attended nothing and returns 0
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  const int row0 = q0 + 64 * w + r0;
+  __nv_bfloat16* ob = a.o + ((long long)b * a.Sq * a.Hq + h) * D + kcol;
+  const long long o_ss = (long long)a.Hq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_ss + 8 * j) =
+          l[0] > 0.f ? __floats2bfloat162_rn(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]) : zero;
+    if (row0 + 8 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * o_ss + 8 * j) =
+          l[1] > 0.f ? __floats2bfloat162_rn(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]) : zero;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, Tile<D>::BLOCKS)
+    fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args a) {
+  using T = Tile<D>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  const uint32_t q_full = sQ + T::Q_BYTES + 2 * STAGES * T::KV_BYTES;    // then the barriers, 8 bytes each
+  const Ring K{sQ + T::Q_BYTES, q_full + 8, q_full + 8 * (1 + STAGES)};
+  const Ring V{K.tiles + STAGES * T::KV_BYTES, q_full + 8 * (1 + 2 * STAGES), q_full + 8 * (1 + 3 * STAGES)};
+
+  const int b = blockIdx.x / a.Hq;
+  const int h = blockIdx.x % a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = (a.n_qtiles - 1 - (int)blockIdx.y) * BQ;  // heaviest q tile first
+
+  // the kv tiles holding a key that some row of this block may attend
+  const int q_lo = a.q_offset + q0;
+  const int q_hi = a.q_offset + min(q0 + BQ, a.Sq) - 1;
+  const int kv_lo = a.window > 0 ? max(0, q_lo - a.window + 1) : 0;
+  const int kv_hi = a.causal ? min(a.Sk - 1, q_hi) : a.Sk - 1;
+  const int t0 = kv_lo / T::BK;
+  const int nt = kv_lo <= kv_hi ? kv_hi / T::BK + 1 - t0 : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(K.full + 8 * s, 1);
+      hopper::mbar_init(K.empty + 8 * s, CONSUMERS);
+      hopper::mbar_init(V.full + 8 * s, 1);
+      hopper::mbar_init(V.empty + 8 * s, CONSUMERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, broadcast from lane 0: setmaxnreg is .aligned, so
+  // every warp must visibly take its branch as one
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    hopper::regs_shrink<LOADER_REGS>();
+    if (threadIdx.x == 0 && nt > 0)
+      produce<D>(&tq, &tk, &tv, a, sQ, q_full, K, V, b, h, hk, q0, t0, nt);
+  } else {
+    hopper::regs_grow<T::CONSUMER_REGS>();
+    consume<D>(a, sQ, q_full, K, V, wg - 1, b, h, q0, t0, nt);
+  }
+}
+
+// Box of a tensor's plan as the kernel expects it: 64 columns, `rows` rows, 1 head, 1 batch.
+inline bool box_ok(const long long* p, int rows) {
+  const long long* box = p + 7;
+  const long long* slots = p + 11;
+  if (box[0] != 64) return false;
+  for (int d = 1; d < 4; ++d)
+    if (box[d] != (d == slots[1] ? rows : 1)) return false;
+  return true;
+}
+
+template <int D>
+int launch(const long long* plan, const void* const ptrs[3], const Args& a, int B, cudaStream_t stream) {
+  using T = Tile<D>;
+  if (!box_ok(plan, BQ) || !box_ok(plan + PLAN_LEN, T::BK) || !box_ok(plan + 2 * PLAN_LEN, T::BK))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long* p = plan + i * PLAN_LEN;
+    const int r = hopper::encode_bf16_4d(&maps[i], ptrs[i], p, p + 4, p + 7);
+    if (r != 0) return 10000 + r;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * a.Hq, a.n_qtiles);
+  fa_fwd_wgmma_kernel<D><<<grid, NTHREADS, T::SMEM, stream>>>(maps[0], maps[1], maps[2], a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// Dynamic shared memory a block uses at head dim D on a dtype's route
+// (0 = float32, 1 = bfloat16; 0 if not built).
+extern "C" int fa_smem_bytes(int D, int dtype) {
+  switch (D * 2 + dtype) {
+    case 128: return smem_bytes<64>();
+    case 256: return smem_bytes<128>();
+    case 512: return smem_bytes<256>();
+    case 129: return wg::Tile<64>::SMEM;
+    case 257: return wg::Tile<128>::SMEM;
+    case 513: return wg::Tile<256>::SMEM;
     default: return 0;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The output o is a contiguous
-// (B, Sq, Hq, D) tensor of the input type. Returns the launch's cudaError_t.
-extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, int dtype,
-                          int B, int Sq, int Sk, int Hq, int Hkv, int D,
-                          long long q_sb, long long q_ss, long long q_sh,
-                          long long k_sb, long long k_ss, long long k_sh,
-                          long long v_sb, long long v_ss, long long v_sh,
-                          int causal, int window, int q_offset, float scale, float softcap,
-                          void* stream) {
+// fp32 route. The output o is a contiguous (B, Sq, Hq, D) float32 tensor.
+// Returns the launch's cudaError_t.
+extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
+                              int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                              long long q_sb, long long q_ss, long long q_sh,
+                              long long k_sb, long long k_ss, long long k_sh,
+                              long long v_sb, long long v_ss, long long v_sh,
+                              int causal, int window, int q_offset, float scale, float softcap,
+                              void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, Sq, Sk, Hq, Hkv,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                causal, window, q_offset, scale, softcap};
+  return (int)dispatch_f32(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 route. plan: for q, k and v in turn, the tensor map's dims (innermost
+// first: D, then the head, row and batch axes ordered by stride), its byte
+// strides of dims 1..3, its box, and the map dimension of the head, row and
+// batch axes (14 numbers each). The output o is a contiguous (B, Sq, Hq, D)
+// bf16 tensor. Returns the launch's cudaError_t, or 10000 + the CUresult of a
+// tensor map the CUDA driver refused.
+extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v, void* o,
+                               int B, int Sq, int Sk, int Hq, int Hkv, int D, const long long* plan,
+                               int causal, int window, int q_offset, float scale, float softcap,
+                               void* stream) {
+  const int n_qtiles = (Sq + wg::BQ - 1) / wg::BQ;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (long long)B * Hq > 0x7fffffff ||
+      n_qtiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long* sl = plan + 11;
+  const wg::Args a{static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, n_qtiles, causal, window, q_offset,
+                   scale, softcap,
+                   {(int)sl[0], (int)sl[1], (int)sl[2]},
+                   {(int)sl[wg::PLAN_LEN], (int)sl[wg::PLAN_LEN + 1], (int)sl[wg::PLAN_LEN + 2]},
+                   {(int)sl[2 * wg::PLAN_LEN], (int)sl[2 * wg::PLAN_LEN + 1], (int)sl[2 * wg::PLAN_LEN + 2]}};
+  const void* const ptrs[3] = {q, k, v};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch_d<float>(a, B, D, s);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(a, B, D, s);
+  switch (D) {
+    case 64: return wg::launch<64>(plan, ptrs, a, B, s);
+    case 128: return wg::launch<128>(plan, ptrs, a, B, s);
+    case 256: return wg::launch<256>(plan, ptrs, a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

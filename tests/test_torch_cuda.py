@@ -77,6 +77,81 @@ def test_kernel_reads_strided_rows(card):
     torch.testing.assert_close(out, attention_ref(q, k, v, window=40), atol=2e-5, rtol=2e-5)
 
 
+# the bf16 route (wgmma, TMA): a bf16 twin of every fp32 case above, then Sq and
+# Sk that are multiples of neither the q tile (128) nor a kv tile (128, or 64
+# at D 256), at each head dim, with q_offset, window and softcap between them
+BF16_CASES = [c[:-1] + ("bfloat16",) for c in CASES if c[-1] == "float32"] + [
+    (2, 300, 333, 6, 2, 64, True, None, None, 33, "bfloat16"),
+    (1, 77, 200, 4, 4, 128, False, None, 30.0, 0, "bfloat16"),
+    (2, 333, 300, 2, 1, 256, True, 100, None, 0, "bfloat16"),
+    (1, 129, 65, 8, 2, 64, False, 40, None, 70, "bfloat16"),
+]
+# the bf16 route's second bar (as in chip_smoke.py): row by row,
+# |out - exact| / |exact| with norms over D, exact being the plain version in
+# fp32 on the same bf16 inputs; rounding P and the output to bf16 reads a few
+# 1e-3, P rounded to fp8 a few 1e-2
+ROW_REL_TOL = 1e-2
+
+
+def _row_rel(out, q, k, v, **kw):
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    return ((out.float() - exact).norm(dim=-1) / exact.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=[f"bf16_case{i}" for i in range(len(BF16_CASES))])
+def test_bf16_route_matches_plain_version(card, case):
+    q, k, v = _inputs(card, case, seed=3)
+    assert fa.plan(q, k, v).route == "wgmma"
+    out = fa.flash_attention(q, k, v, **_kw(case))
+    ref = attention_ref(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    assert _row_rel(out, q, k, v, **_kw(case)) <= ROW_REL_TOL
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_bf16_route_reads_strided_rows(card, D):
+    """bf16 q, k, v as views of one fused projection: TMA reads the strided rows."""
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 200, 6, D)).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    out = fa.flash_attention(q, k, v, window=90)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, window=90).float(), atol=2e-2, rtol=2e-2)
+    assert _row_rel(out, q, k, v, window=90) <= ROW_REL_TOL
+
+
+def test_bf16_route_rows_that_attend_nothing_are_zero(card):
+    """Keys [0, 64), a window of 100, not causal: rows from position 163 on have
+    no key in reach and must return 0, beside rows of the same q tile that do."""
+    q, k, v = _inputs(card, (1, 256, 64, 4, 2, 128, False, 100, None, 0, "bfloat16"), seed=5)
+    out = fa.flash_attention(q, k, v, causal=False, window=100)
+    ref = attention_ref(q, k, v, causal=False, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 163:], torch.zeros_like(out[:, 163:]))
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    q, k, v = _inputs(card, (1, 8, 4, 2, 1, 64, True, 1, None, 16, "bfloat16"))
+    out = fa.flash_attention(q, k, v, window=1, q_offset=16)  # no tile in reach at all
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_bf16_route_refuses_what_tma_cannot_load(card):
+    q, k, v = _inputs(card, (1, 64, 64, 2, 1, 64, True, None, None, 0, "bfloat16"))
+    buf = torch.zeros(1, 64, 2 * 64 + 4, dtype=torch.bfloat16, device=card)
+    q_odd = buf.as_strided((1, 64, 2, 64), (64 * 132, 132, 64, 1))  # rows 264 bytes apart
+    with pytest.raises(ValueError, match="q's row stride is 264 bytes"):
+        fa.flash_attention(q_odd, k, v)
+    flat = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="k starts 8 bytes past a 16-byte boundary"):
+        fa.flash_attention(q, flat[4:].view(1, 64, 1, 64), v)
+
+
+def test_bf16_route_counts_launches(card):
+    q, k, v = _inputs(card, CASES[5])
+    before = fa.LAUNCHES
+    ops.attention(q, k, v, impl="auto")
+    assert fa.LAUNCHES == before + 1
+
+
 def test_auto_on_card_launches_the_kernel(card):
     q, k, v = _inputs(card, CASES[0])
     before = fa.LAUNCHES

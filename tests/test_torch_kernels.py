@@ -136,6 +136,64 @@ def test_kernel_modules_import_without_nvcc():
     assert res.returncode == 0, res.stderr
 
 
+# K1's host-side plan: the route by dtype, the kv tile by head dim, and the
+# TMA tensor maps (dims, byte strides, boxes) of the bf16 route, with its
+# refusals. It needs no card and no nvcc, so it runs here on CPU tensors.
+@pytest.mark.parametrize("D,bk", [(64, 64), (128, 128), (256, 64)])
+def test_plan_tiles_by_head_dim(D, bk):
+    q = torch.zeros(2, 300, 4, D, dtype=torch.bfloat16)
+    k = torch.zeros(2, 333, 2, D, dtype=torch.bfloat16)
+    p = fa.plan(q, k, k)
+    assert (p.route, p.block_q, p.block_k) == ("wgmma", 128, bk)
+    qm, km, vm = p.maps
+    assert qm == fa.TensorMap(dims=(D, 4, 300, 2), strides=(2 * D, 8 * D, 2400 * D),
+                              box=(64, 1, 128, 1), slots=(1, 2, 3))
+    assert km == vm == fa.TensorMap(dims=(D, 2, 333, 2), strides=(2 * D, 4 * D, 1332 * D),
+                                    box=(64, 1, bk, 1), slots=(1, 2, 3))
+    assert len(qm.flat()) == 14
+
+
+def test_plan_fp32_takes_the_cuda_core_route():
+    q = torch.zeros(1, 16, 2, 64)
+    assert fa.plan(q, q, q) == fa.Plan("fp32", 64, 64)
+
+
+def test_plan_reads_fused_qkv_views():
+    """q, k, v as head slices of one projection: strides of the whole row, no copy."""
+    qkv = torch.zeros(2, 96, 6, 64, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    qm, km, vm = fa.plan(q, k, v).maps
+    assert qm.dims == (64, 4, 96, 2) and qm.strides == (128, 768, 73728)
+    # k, v have one head: that axis goes outermost, past the batch's span
+    assert km.dims == (64, 96, 2, 1) and km.strides == (768, 73728, 147456)
+    assert km.box == (64, 64, 1, 1) and km.slots == (3, 1, 2)
+    assert vm.dims == km.dims and vm.strides == km.strides
+
+
+def test_plan_orders_axes_by_stride():
+    """A head-major tensor viewed as (B, S, H, D): the map's dims follow the strides."""
+    q = torch.zeros(2, 4, 100, 128, dtype=torch.bfloat16).transpose(1, 2)
+    qm = fa.plan(q, q, q).maps[0]
+    assert qm.dims == (128, 100, 4, 2) and qm.strides == (256, 25600, 102400)
+    assert qm.box == (64, 128, 1, 1) and qm.slots == (2, 1, 3)
+
+
+def test_plan_refuses_what_tma_cannot_load():
+    k = torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16)
+    buf = torch.zeros(1, 64, 132, dtype=torch.bfloat16)
+    q_odd = buf.as_strided((1, 64, 2, 64), (64 * 132, 132, 64, 1))  # rows 264 bytes apart
+    with pytest.raises(ValueError, match="q's row stride is 264 bytes"):
+        fa.plan(q_odd, k, k)
+    flat = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="v starts 8 bytes past a 16-byte boundary"):
+        fa.plan(k, k, flat[4:].view(1, 64, 1, 64))
+    heads = torch.zeros(1, 8, 3, 72, dtype=torch.bfloat16)[..., :64]  # heads 144 bytes apart: loads
+    assert fa.plan(heads, heads, heads).maps[0].strides == (144, 432, 3456)
+    odd_heads = torch.zeros(1, 8, 3, 68, dtype=torch.bfloat16)[..., :64]  # 136 bytes apart
+    with pytest.raises(ValueError, match="q's head stride is 136 bytes"):
+        fa.plan(odd_heads, heads, heads)
+
+
 # tests/test_kernels.py MAMBA_CASES: B, T, Di, N, Pallas block_channels, chunk, dtype
 MAMBA_CASES = [
     (2, 128, 256, 16, 128, 64, "float32"),
