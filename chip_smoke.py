@@ -8,11 +8,15 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 
 1. device   — the card, the toolchain, the kernel build (seconds, ptxas -v).
 2. kernels  — flash attention against its plain PyTorch version on the card:
-              the attention cases of tests/test_kernels.py, a bf16 twin of
-              each fp32 one (the wgmma route), and the gemma3-1b prefill
-              shapes (tolerance 2e-5 fp32, 2e-2 bf16; bf16 also within
-              1e-2 of the exact value row by row, where a stand-in that
-              rounds P to fp8 must fail).
+              the attention cases of tests/test_kernels.py, cases at the
+              head dims 80, 96 and 192 (carried in a larger tile), a bf16
+              twin of each fp32 one (the wgmma route), and the gemma3-1b
+              prefill shapes (tolerance 2e-5 fp32, 2e-2 bf16; bf16 also
+              within 1e-2 of the exact value row by row, where a stand-in
+              that rounds P to fp8 must fail); at D 80 on both routes, that
+              the epilogue leaves the bytes past the last head as they were;
+              at one prefill shape of each config with such a head dim, the
+              kernel's time beside ``scaled_dot_product_attention``.
 3. prefill  — full-width gemma3-1b ``forward`` on B=2, S=2048: fp32 kernel
               vs plain logits, the bf16 main path (launch counts, tokens/s,
               top-1 agreement with the plain path), kernel times vs bound.
@@ -57,9 +61,12 @@ products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
 17. gmm_kernels — K4 against its plain version: the cases of
               tests/test_kernels.py (uneven groups included) in fp32, bf16
               and bf16 with fp32 output, the granite and jamba prefill
-              products, the decode shape (one row per expert) and a ragged
-              K, N and row block (1e-3 fp32 output, 1e-2 bf16); kernel,
-              plain, bound and ``torch.bmm`` times at the paths' shapes.
+              products, the decode shape (one row per expert), a ragged K,
+              N and row block, a persistent-schedule case (more tiles than
+              SMs, a ragged last wave) and a bad group id on the wgmma route
+              (1e-3 fp32 output, 1e-2 bf16); at the paths' shapes the route,
+              kernel, plain, bound and ``torch.bmm`` times, TFLOP/s and the
+              ratios to ``torch.bmm`` and to the bound.
 18. granite_attention — flash attention at the granite attention shape
               (B=2, S=2048, 24/8 heads of 64, causal, bf16) against its plain
               version, beside ``scaled_dot_product_attention``.
@@ -114,6 +121,25 @@ GEMMA_SHAPES = {
 }
 LAYERS_PER_FORWARD = {"local": 22, "global": 4}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# head dims without a tile of their own (80 and 96 run in the D 128 tile, 192
+# in the bf16 route's D 256 one): causal with GQA and windowed, Sq and Sk
+# multiples of no tile; phase kernels adds a bf16 twin of each
+ODD_D_CASES = [
+    (2, 200, 200, 6, 2, 80, True, None, None, 0, "float32"),
+    (1, 256, 256, 4, 1, 80, True, 64, None, 0, "float32"),
+    (2, 130, 130, 8, 2, 96, True, None, None, 0, "float32"),
+    (1, 256, 300, 4, 4, 96, True, 100, None, 44, "float32"),
+    (1, 200, 200, 4, 2, 192, True, None, None, 0, "float32"),
+    (2, 128, 128, 2, 1, 192, True, 50, None, 0, "float32"),
+]
+# a prefill shape (B=2, S=2048, causal, bf16) of each config with such a head
+# dim: stablelm-3b 32/32 heads of 80, phi-3-vision-4.2b 32/32 of 96,
+# nemotron-4-340b 96/8 of 192
+ODD_D_SHAPES = {
+    "stablelm_3b": (PREFILL_B, PREFILL_S, PREFILL_S, 32, 32, 80, True, None, None, 0, "bfloat16"),
+    "phi3_vision_4_2b": (PREFILL_B, PREFILL_S, PREFILL_S, 32, 32, 96, True, None, None, 0, "bfloat16"),
+    "nemotron_4_340b": (PREFILL_B, PREFILL_S, PREFILL_S, 96, 8, 192, True, None, None, 0, "bfloat16"),
+}
 # bf16 attention, second bar: the largest over (b, s, h) rows of
 # |out - exact| / |exact| (norms over D), exact being the plain version in fp32
 # on the same bf16 inputs, before any rounding. A row that attends many keys
@@ -175,6 +201,9 @@ GRANITE_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 24, 8, 64, True, None, None, 0,
 GMM_CASES = [([256] * 4, 256, 128), ([128] * 8, 512, 256), ([128] * 2, 128, 128),
              ([256, 128, 384], 256, 128)]
 GMM_RAGGED = ([200] * 3, 200, 72)
+# the wgmma route's persistent schedule: 50 x 3 x 3 = 450 tiles of 128 x 256,
+# 3.4 waves of 132 SMs, K and N multiples of no tile
+GMM_PERSISTENT = ([384] * 50, 136, 520)
 # fp32 output: the bar of tests/test_kernels.py (sums in another order); bf16
 # output: a sum near a rounding boundary may round the other way, one bf16 ulp
 # (2^-8 relative) and some
@@ -300,21 +329,23 @@ def phase_device(torch) -> str:
                 for b in built.values()},
         flash_attention_smem_bytes={str(dt).removeprefix("torch."): {d: smem_bytes(d, dt) for d in HEAD_DIMS}
                                     for dt in (torch.float32, torch.bfloat16)},
-        # K1's bf16 route, per head dim: ptxas's registers at launch (the
+        # K1's bf16 route, per tile D: ptxas's registers at launch (the
         # consumers take 240, or 104 at D 64, by setmaxnreg) and spills
-        flash_attention_wgmma_ptxas=_wgmma_ptxas(built["flash_attention"].ptxas),
+        flash_attention_wgmma_ptxas=_wgmma_ptxas(built["flash_attention"].ptxas, {
+            d: f"fa_fwd_wgmma_kernelILi{d}E" for d in ("64", "128", "256")}),
     )
     return smi
 
 
-def _wgmma_ptxas(lines) -> dict:
-    """K1's bf16 kernels' ptxas lines (``_build.Built.ptxas``), by head dim."""
-    out, d = {}, None
+def _wgmma_ptxas(lines, kernels) -> dict:
+    """The ptxas lines (``_build.Built.ptxas``) of each kernel of ``kernels``
+    (label: a fragment of its mangled name)."""
+    out, label = {}, None
     for ln in lines:
         if "Compiling entry function" in ln:
-            d = next((x for x in ("64", "128", "256") if f"fa_fwd_wgmma_kernelILi{x}E" in ln), None)
-        elif d is not None:
-            out.setdefault(d, []).append(ln)
+            label = next((k for k, frag in kernels.items() if frag in ln), None)
+        elif label is not None:
+            out.setdefault(label, []).append(ln)
     return out
 
 
@@ -342,6 +373,8 @@ def phase_kernels(torch, dev) -> dict:
     cases = [(f"attn_case_{i}", c) for i, c in enumerate(ATTN_CASES)]
     cases += [(f"attn_case_{i}_bf16", c[:-1] + ("bfloat16",)) for i, c in enumerate(ATTN_CASES)
               if c[-1] == "float32"]
+    cases += [(f"head_dim_{c[5]}_case_{i}", c) for i, c in enumerate(ODD_D_CASES)]
+    cases += [(f"head_dim_{c[5]}_case_{i}_bf16", c[:-1] + ("bfloat16",)) for i, c in enumerate(ODD_D_CASES)]
     cases += [(f"gemma3_1b_{k}", c) for k, c in GEMMA_SHAPES.items()]
     for seed, (name, case) in enumerate(cases):
         q, k, v = _qkv(torch, dev, case, seed)
@@ -358,9 +391,15 @@ def phase_kernels(torch, dev) -> dict:
         del q, k, v, out, ref
         if name.startswith("gemma"):
             gemma_err = max(gemma_err, err)
-    emit("kernels", cases=rows)
+    epilogue = [_head_dim_epilogue(torch, dev, dtype) for dtype in ("float32", "bfloat16")]
+    head_dims = {name: _fa_at_shape(torch, dev, case, seed=200 + i)
+                 for i, (name, case) in enumerate(ODD_D_SHAPES.items())}
+    emit("kernels", cases=rows, head_dim_80_epilogue=epilogue, head_dim_shapes=head_dims)
     check(all(r["ok"] for r in rows), "flash_attention disagrees with attention_ref: "
           f"{[r for r in rows if not r['ok']]}")
+    check(all(r["ok"] for r in epilogue), f"flash_attention at D 80 wrote past its head dim: {epilogue}")
+    check(all(r.pop("ok") for r in head_dims.values()),
+          f"flash_attention disagrees with attention_ref at a head-dim shape: {head_dims}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -368,6 +407,32 @@ def phase_kernels(torch, dev) -> dict:
         "replaces": "src/repro/kernels/flash_attention.py:157",
         "max_abs_err": gemma_err,
     }
+
+
+def _head_dim_epilogue(torch, dev, dtype) -> dict:
+    """D 80 runs in the D 128 tile: q, k, v as strided views of one fused
+    projection, the output a view of a buffer with one more head past it,
+    whose bytes must stay as they were (the padding's 48 columns of every
+    row would land on the next head's)."""
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 150, 6, 80)).astype(np.float32)).to(dev, getattr(torch, dtype))
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    p = fa.plan(q, k, v)
+    n = q.numel()
+    buf = torch.full((n + 80,), 7.0, dtype=q.dtype, device=dev)
+    out = buf[:n].view(q.shape)
+    fa._launch(q, k, v, out, p, causal=True, window=None, softcap=None, q_offset=0, scale=None)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    untouched = bool(torch.equal(buf[n:], torch.full_like(buf[n:], 7.0)))
+    tol = TOL[dtype]
+    err = (out.float() - ref.float()).abs().max().item()
+    return {"dtype": dtype, "route": p.route, "head_dim": p.head_dim, "tile_d": p.tile_d,
+            "neighbour_untouched": untouched, "max_abs_err": err, "tol": tol,
+            "ok": untouched and bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))}
 
 
 def _row_rel(torch, out, exact) -> float:
@@ -1200,7 +1265,7 @@ def phase_xlstm_serve(torch) -> None:
 # ----------------------------- granite phases --------------------------------
 
 # the kernels' launches as the profiler names them, for device time by kernel
-_GROUPS = {"gmm": ("gmm_bf16_kernel", "gmm_f32_kernel"),
+_GROUPS = {"gmm": ("gmm_wgmma_kernel", "gmm_bf16_kernel", "gmm_f32_kernel"),
            "flash_attention": ("fa_fwd_kernel", "fa_fwd_wgmma_kernel"),
            "mamba_scan": ("mamba_scan_kernel",)}
 
@@ -1263,12 +1328,29 @@ def _gmm_check(torch, dev, gk, gmm_ref, sizes, K, N, dtype, out_dtype, seed, sca
     ref = gmm_ref(lhs, rhs, sizes, out_dtype=out_dtype)
     torch.cuda.synchronize()
     tol = GMM_TOL["float32" if out_dtype == torch.float32 else "bfloat16"]
-    row = {"groups": len(sizes), "rows": sizes if len(set(sizes)) > 1 else sizes[0], "K": K, "N": N,
+    row = {"route": gk.plan(lhs, rhs, ids).route,
+           "groups": len(sizes), "rows": sizes if len(set(sizes)) > 1 else sizes[0], "K": K, "N": N,
            "dtype": str(dtype).split(".")[-1], "out_dtype": str(out_dtype).split(".")[-1],
            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
            "max_abs": ref.float().abs().max().item(), "tol": tol,
            "ok": bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))}
     return row, (lhs, rhs, ids)
+
+
+def _gmm_poison(torch, dev, gk) -> dict:
+    """The wgmma route with a group id outside [0, G) in the middle of three
+    row blocks of 200 rows: its rows come out NaN, its neighbours' (whose
+    second tiles read its rows through TMA) stay right."""
+    lhs, rhs = _gmm_inputs(torch, dev, [200] * 3, 128, 128, torch.bfloat16, seed=99)
+    ids = torch.tensor([0, 7, 1], dtype=torch.int32, device=dev)
+    out = gk.gmm(lhs, rhs, ids).float()
+    want = torch.cat([lhs[:200].float() @ rhs[0].float(), lhs[400:].float() @ rhs[1].float()]).bfloat16().float()
+    got = torch.cat([out[:200], out[400:]])
+    return {"case": "bad_group_id", "route": gk.plan(lhs, rhs, ids).route,
+            "bad_rows_nan": bool(torch.isnan(out[200:400]).all()),
+            "max_abs_err": (got - want).abs().max().item(), "tol": GMM_TOL["bfloat16"],
+            "ok": bool(torch.isnan(out[200:400]).all())
+            and bool(torch.allclose(got, want, atol=GMM_TOL["bfloat16"], rtol=GMM_TOL["bfloat16"]))}
 
 
 def phase_gmm_kernels(torch, dev):
@@ -1279,16 +1361,18 @@ def phase_gmm_kernels(torch, dev):
     exceeds a decode launch's device time). Returns K4's row and its numbers
     by path, per launch averaged over a prefill forward's launches."""
     import repro_torch.kernels.gmm as gk
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import gmm_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases, seed = [], 0
-    for i, (sizes, K, N) in enumerate([*GMM_CASES, GMM_RAGGED]):
-        name = "ragged" if i == len(GMM_CASES) else f"gmm_case_{i}"
+    named = [(f"gmm_case_{i}", c) for i, c in enumerate(GMM_CASES)]
+    for name, (sizes, K, N) in [*named, ("ragged", GMM_RAGGED), ("persistent", GMM_PERSISTENT)]:
         for dtype, out_dtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
             seed += 1
             row, _ = _gmm_check(torch, dev, gk, gmm_ref, sizes, K, N, dtype, out_dtype, seed)
             cases.append({"case": name, **row})
+    cases.append(_gmm_poison(torch, dev, gk))
     paths = []
     for name, product, E, C, K, N, out_dtype, per_forward in _gmm_products(torch):
         seed += 1
@@ -1308,11 +1392,17 @@ def phase_gmm_kernels(torch, dev):
             "library_ms": _graph_ms(torch, bmm), "library_max_abs_err": lib_err,
             **_gmm_bound(E * C, K, N, E, 2, 4 if out_dtype == f32 else 2),
         })
+        row.update({"tflops": 2 * E * C * K * N / row["ms"] / 1e9, "ratio_to_library": row["ms"] / row["library_ms"],
+                    "ratio_to_bound": row["ms"] / row["bound_ms"]})
         paths.append(row)
         del lhs, rhs, lhs3
     torch.cuda.empty_cache()
     emit("gmm_kernels", cases=cases, path_products=paths,
-         tol="allclose(atol=rtol=tol): 1e-3 fp32 output, 1e-2 bf16 output")
+         tol="allclose(atol=rtol=tol): 1e-3 fp32 output, 1e-2 bf16 output",
+         # the wgmma route, per output type: registers at launch (the consumers
+         # take 232 by setmaxnreg) and spills
+         wgmma_ptxas=_wgmma_ptxas(_build.build_all()["gmm"].ptxas, {
+             "float32": "gmm_wgmma_kernelIfE", "bfloat16": "gmm_wgmma_kernelI13__nv_bfloat16E"}))
     check(all(r["ok"] for r in cases + paths), "gmm disagrees with gmm_ref: "
           + json.dumps([r for r in cases + paths if not r["ok"]]))
 
@@ -1321,12 +1411,14 @@ def phase_gmm_kernels(torch, dev):
         rows = [r for r in paths if r["path"] == name and r["product"].startswith("prefill")]
         n = sum(r["launches_per_forward"] for r in rows)
         agg = {k: sum(r[k] * r["launches_per_forward"] for r in rows) / n
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms", "gflop")}
         t_ops = sum(r["bound_ops_ms"] * r["launches_per_forward"] for r in rows)
         t_bytes = sum(r["bound_bytes_ms"] * r["launches_per_forward"] for r in rows)
         by_path[name] = {"max_abs_err": max(r["max_abs_err"] for r in rows), **agg,
                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                         "launches_per_forward": n}
+                         "launches_per_forward": n, "routes": sorted({r["route"] for r in rows}),
+                         "tflops": agg["gflop"] / agg["ms"], "ratio_to_library": agg["ms"] / agg["library_ms"],
+                         "ratio_to_bound": agg["ms"] / agg["bound_ms"]}
     return {
         "name": "gmm",
         "route": "cuda",

@@ -65,11 +65,19 @@
 //   stays inside the bf16 bar (2e-2) of tests/test_kernels.py.
 // * TMA needs a 16-byte-aligned base and byte strides that are multiples of
 //   16: the wrapper checks both and raises otherwise (no fallback).
+// * Head dims 80 and 96 run in the D 128 tile, 192 in the D 256 tile: each
+//   tensor map has the real head dim d as its innermost extent, so TMA fills
+//   the columns past d with zeros (for d 192 the whole fourth box), Q K^T is
+//   unchanged and O's columns past d come out 0; the epilogue stores only the
+//   first d, so a head's padding never lands on the next head's row. Up to
+//   1.6x the operations of a tile of d's own (d 80).
 //
 // fp32 route (fa_fwd_kernel): one block of 256 threads per (b, h, 64-row q
 // tile), Q, K and V tiles staged in shared memory as fp32 (up to 214 KB at
 // D 256, so one block an SM), the products as fp32 FMAs on the CUDA cores, so
 // that fp32 inputs meet a 2e-5 tolerance, which bf16 or TF32 operands cannot.
+// Tiles of D 64, 128, 192 and 256; head dims 80 and 96 run in the D 128 tile,
+// loaded with zeros past d and stored only up to d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +99,7 @@ struct Args {
   const void* v;
   void* o;
   int Sq, Sk, Hq, Hkv;
+  int d;                       // head dim; the tile's D may be larger
   long long q_sb, q_ss, q_sh;  // element strides of the B, S and H axes
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -113,16 +122,17 @@ struct Vec4<float> {
 };
 
 // Copy rows [r0, r0 + rows) of one (b, h) slice into shared memory as fp32,
-// row stride ld floats; rows at or past n are zero-filled.
+// row stride ld floats; rows at or past n and columns at or past d (a
+// multiple of 4) are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
-                                          long long row_stride, int r0, int n, int rows) {
+                                          long long row_stride, int r0, int n, int rows, int d) {
   constexpr int V = D / 4;
   for (int idx = threadIdx.x; idx < rows * V; idx += NT) {
     const int r = idx / V;
     const int c = (idx % V) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = Vec4<T>::load(base + (long long)(r0 + r) * row_stride + c);
+    if (r0 + r < n && c < d) x = Vec4<T>::load(base + (long long)(r0 + r) * row_stride + c);
     *reinterpret_cast<float4*>(dst + r * ld + c) = x;
   }
 }
@@ -148,10 +158,10 @@ __global__ void __launch_bounds__(NT, 1) fa_fwd_kernel(const Args a) {
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  T* ob = static_cast<T*>(a.o) + ((long long)b * a.Sq * a.Hq + h) * D;  // (B, Sq, Hq, D)
-  const long long o_ss = (long long)a.Hq * D;
+  T* ob = static_cast<T*>(a.o) + ((long long)b * a.Sq * a.Hq + h) * a.d;  // (B, Sq, Hq, d)
+  const long long o_ss = (long long)a.Hq * a.d;
 
-  load_tile<T, D>(sQ, LD, qb, a.q_ss, q0, a.Sq, BQ);
+  load_tile<T, D>(sQ, LD, qb, a.q_ss, q0, a.Sq, BQ, a.d);
 
   // the kv tiles holding a key that some row of this block may attend
   const int q_lo = a.q_offset + q0;
@@ -174,8 +184,8 @@ __global__ void __launch_bounds__(NT, 1) fa_fwd_kernel(const Args a) {
   for (int t = kv_lo / BK; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's P V is done with sK, sV and sP
-    load_tile<T, D>(sK, LD, kb, a.k_ss, k0, a.Sk, BK);
-    load_tile<T, D>(sV, D, vb, a.v_ss, k0, a.Sk, BK);
+    load_tile<T, D>(sK, LD, kb, a.k_ss, k0, a.Sk, BK, a.d);
+    load_tile<T, D>(sV, D, vb, a.v_ss, k0, a.Sk, BK, a.d);
     __syncthreads();
 
     // s = Q K^T for rows ty + 16 i and keys tx + 16 j
@@ -281,6 +291,7 @@ __global__ void __launch_bounds__(NT, 1) fa_fwd_kernel(const Args a) {
     const float den = l[i] > 0.f ? l[i] : 1.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (c * 64 + tx * 4 >= a.d) continue;  // the tile's columns past d
       const float4 x = make_float4(acc[i][c][0] / den, acc[i][c][1] / den,
                                    acc[i][c][2] / den, acc[i][c][3] / den);
       Vec4<T>::store(ob + row * o_ss + c * 64 + tx * 4, x);
@@ -305,10 +316,16 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const Args& a, int B, int D, cudaStream_t stream) {
-  switch (D) {
+// The fp32 route's tile D for head dim d (0: not taken).
+constexpr int f32_tile(int d) {
+  return d == 64 ? 64 : (d == 80 || d == 96 || d == 128) ? 128 : d == 192 ? 192 : d == 256 ? 256 : 0;
+}
+
+cudaError_t dispatch_f32(const Args& a, int B, cudaStream_t stream) {
+  switch (f32_tile(a.d)) {
     case 64: return launch<float, 64>(a, B, stream);
     case 128: return launch<float, 128>(a, B, stream);
+    case 192: return launch<float, 192>(a, B, stream);
     case 256: return launch<float, 256>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -359,7 +376,8 @@ struct Slots {
 };
 
 struct Args {
-  __nv_bfloat16* o;  // contiguous (B, Sq, Hq, D)
+  __nv_bfloat16* o;  // contiguous (B, Sq, Hq, d)
+  int d;             // head dim: the tile's D, or less (see wgmma_tile)
   int Sq, Sk, Hq, Hkv, n_qtiles;
   int causal, window, q_offset;  // window <= 0: no window
   float scale, softcap;          // softcap <= 0: no softcap
@@ -629,10 +647,11 @@ __device__ __forceinline__ void consume(const Args& a, uint32_t sQ, uint32_t q_f
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
   const int row0 = q0 + 64 * w + r0;
-  __nv_bfloat16* ob = a.o + ((long long)b * a.Sq * a.Hq + h) * D + kcol;
-  const long long o_ss = (long long)a.Hq * D;
+  __nv_bfloat16* ob = a.o + ((long long)b * a.Sq * a.Hq + h) * a.d + kcol;
+  const long long o_ss = (long long)a.Hq * a.d;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
+    if (8 * j >= a.d) continue;  // the tile's columns past d (a multiple of 8): not this head's
     if (row0 < a.Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_ss + 8 * j) =
           l[0] > 0.f ? __floats2bfloat162_rn(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]) : zero;
@@ -692,11 +711,12 @@ __global__ void __launch_bounds__(NTHREADS, Tile<D>::BLOCKS)
   }
 }
 
-// Box of a tensor's plan as the kernel expects it: 64 columns, `rows` rows, 1 head, 1 batch.
-inline bool box_ok(const long long* p, int rows) {
+// A tensor's plan as the kernel expects it: the head dim innermost, and a
+// box of 64 columns, `rows` rows, 1 head, 1 batch.
+inline bool box_ok(const long long* p, int head_dim, int rows) {
   const long long* box = p + 7;
   const long long* slots = p + 11;
-  if (box[0] != 64) return false;
+  if (p[0] != head_dim || box[0] != 64) return false;
   for (int d = 1; d < 4; ++d)
     if (box[d] != (d == slots[1] ? rows : 1)) return false;
   return true;
@@ -705,12 +725,13 @@ inline bool box_ok(const long long* p, int rows) {
 template <int D>
 int launch(const long long* plan, const void* const ptrs[3], const Args& a, int B, cudaStream_t stream) {
   using T = Tile<D>;
-  if (!box_ok(plan, BQ) || !box_ok(plan + PLAN_LEN, T::BK) || !box_ok(plan + 2 * PLAN_LEN, T::BK))
+  if (!box_ok(plan, a.d, BQ) || !box_ok(plan + PLAN_LEN, a.d, T::BK) ||
+      !box_ok(plan + 2 * PLAN_LEN, a.d, T::BK))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const long long* p = plan + i * PLAN_LEN;
-    const int r = hopper::encode_bf16_4d(&maps[i], ptrs[i], p, p + 4, p + 7);
+    const int r = hopper::encode_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptrs[i], p, p + 4, p + 7);
     if (r != 0) return 10000 + r;
   }
   const cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma_kernel<D>,
@@ -721,14 +742,21 @@ int launch(const long long* plan, const void* const ptrs[3], const Args& a, int 
   return (int)cudaGetLastError();
 }
 
+// The bf16 route's tile D for head dim d (0: not taken): 80 and 96 run in the
+// D 128 tile, 192 in the D 256 tile.
+constexpr int wgmma_tile(int d) {
+  return d == 64 ? 64 : (d == 80 || d == 96 || d == 128) ? 128 : (d == 192 || d == 256) ? 256 : 0;
+}
+
 }  // namespace wg
 
-// Dynamic shared memory a block uses at head dim D on a dtype's route
-// (0 = float32, 1 = bfloat16; 0 if not built).
-extern "C" int fa_smem_bytes(int D, int dtype) {
-  switch (D * 2 + dtype) {
+// Dynamic shared memory a block uses at head dim d on a dtype's route
+// (0 = float32, 1 = bfloat16; 0 if not taken).
+extern "C" int fa_smem_bytes(int d, int dtype) {
+  switch (dtype ? 2 * wg::wgmma_tile(d) + 1 : 2 * f32_tile(d)) {
     case 128: return smem_bytes<64>();
     case 256: return smem_bytes<128>();
+    case 384: return smem_bytes<192>();
     case 512: return smem_bytes<256>();
     case 129: return wg::Tile<64>::SMEM;
     case 257: return wg::Tile<128>::SMEM;
@@ -737,8 +765,9 @@ extern "C" int fa_smem_bytes(int D, int dtype) {
   }
 }
 
-// fp32 route. The output o is a contiguous (B, Sq, Hq, D) float32 tensor.
-// Returns the launch's cudaError_t.
+// fp32 route, head dim D in 64, 80, 96, 128, 192, 256 (a multiple of 4, so
+// rows load as float4). The output o is a contiguous (B, Sq, Hq, D) float32
+// tensor. Returns the launch's cudaError_t.
 extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
                               int B, int Sq, int Sk, int Hq, int Hkv, int D,
                               long long q_sb, long long q_ss, long long q_sh,
@@ -748,17 +777,17 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void*
                               void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, Sq, Sk, Hq, Hkv,
+  const Args a{q, k, v, o, Sq, Sk, Hq, Hkv, D,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                causal, window, q_offset, scale, softcap};
-  return (int)dispatch_f32(a, B, D, static_cast<cudaStream_t>(stream));
+  return (int)dispatch_f32(a, B, static_cast<cudaStream_t>(stream));
 }
 
-// bf16 route. plan: for q, k and v in turn, the tensor map's dims (innermost
-// first: D, then the head, row and batch axes ordered by stride), its byte
-// strides of dims 1..3, its box, and the map dimension of the head, row and
-// batch axes (14 numbers each). The output o is a contiguous (B, Sq, Hq, D)
-// bf16 tensor. Returns the launch's cudaError_t, or 10000 + the CUresult of a
+// bf16 route, head dim D in 64, 80, 96, 128, 192, 256. plan: for q, k and v
+// in turn, the tensor map's dims (innermost first: D, then the head, row and
+// batch axes ordered by stride), its byte strides of dims 1..3, its box, and
+// the map dimension of the head, row and batch axes (14 numbers each). The
+// output o is a contiguous (B, Sq, Hq, D) bf16 tensor. Returns the launch's cudaError_t, or 10000 + the CUresult of a
 // tensor map the CUDA driver refused.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v, void* o,
                                int B, int Sq, int Sk, int Hq, int Hkv, int D, const long long* plan,
@@ -769,14 +798,14 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v, void
       n_qtiles > 65535)
     return (int)cudaErrorInvalidValue;
   const long long* sl = plan + 11;
-  const wg::Args a{static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, n_qtiles, causal, window, q_offset,
+  const wg::Args a{static_cast<__nv_bfloat16*>(o), D, Sq, Sk, Hq, Hkv, n_qtiles, causal, window, q_offset,
                    scale, softcap,
                    {(int)sl[0], (int)sl[1], (int)sl[2]},
                    {(int)sl[wg::PLAN_LEN], (int)sl[wg::PLAN_LEN + 1], (int)sl[wg::PLAN_LEN + 2]},
                    {(int)sl[2 * wg::PLAN_LEN], (int)sl[2 * wg::PLAN_LEN + 1], (int)sl[2 * wg::PLAN_LEN + 2]}};
   const void* const ptrs[3] = {q, k, v};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (wg::wgmma_tile(D)) {
     case 64: return wg::launch<64>(plan, ptrs, a, B, s);
     case 128: return wg::launch<128>(plan, ptrs, a, B, s);
     case 256: return wg::launch<256>(plan, ptrs, a, B, s);

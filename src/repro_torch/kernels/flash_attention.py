@@ -8,7 +8,9 @@ ragged last q and kv tiles are masked in the kernel, so any ``Sq``/``Sk`` work.
 
 The input type picks the route (:func:`plan`): bf16 runs on the tensor cores
 (``wgmma``, K and V fed by TMA into a ring of shared-memory tiles), fp32 on
-the CUDA cores in fp32 FMAs. Both count in :data:`LAUNCHES`.
+the CUDA cores in fp32 FMAs. Both count in :data:`LAUNCHES`. A head dim
+without a tile of its own runs in the next tile up (:func:`tile_dim`): the
+columns past it load as zeros and are not stored.
 
 This wrapper only launches: a tensor that is not on a card, or anything else
 the kernel does not take, raises. The CPU path is ``ops.attention``'s choice of
@@ -27,13 +29,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "plan", "smem_bytes", "LAUNCHES", "HEAD_DIMS", "Plan", "TensorMap"]
+__all__ = ["flash_attention", "plan", "smem_bytes", "tile_dim", "LAUNCHES", "HEAD_DIMS", "Plan", "TensorMap"]
 
 #: launches of the kernel in this process, both routes (incremented once per launch)
 LAUNCHES = 0
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128, 256)
+#: head dims the kernel takes, on both routes
+HEAD_DIMS = (64, 80, 96, 128, 192, 256)
+# the tile D that carries each head dim: bf16 (wgmma) route, fp32 route
+_TILE_D = {
+    torch.bfloat16: {64: 64, 80: 128, 96: 128, 128: 128, 192: 256, 256: 256},
+    torch.float32: {64: 64, 80: 128, 96: 128, 128: 128, 192: 192, 256: 256},
+}
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_BH = 65535  # fp32 route: grid.y limit, B * Hq blocks
 _MAX_QTILES = 65535  # bf16 route: grid.y limit, q tiles of a sequence
@@ -65,6 +72,13 @@ def _kernel(name: str):
     return _fns[name]
 
 
+def tile_dim(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The head dim of the kernel's tile that carries ``head_dim`` on
+    ``dtype``'s route: its own where there is one, else the next up (80 and
+    96 in 128 on both routes; 192 in 256 on the bf16 route)."""
+    return _TILE_D[dtype][head_dim]
+
+
 def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of one block of the kernel at this head dim on
     ``dtype``'s route."""
@@ -74,16 +88,18 @@ def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
 
 
 def block_k(head_dim: int) -> int:
-    """Keys per K/V tile of the bf16 route: 128 at D 128; 64 at D 256 (shared
-    memory) and at D 64 (registers: two blocks share an SM there)."""
-    return 128 if head_dim == 128 else 64
+    """Keys per K/V tile of the bf16 route: 128 in the D 128 tile; 64 in the
+    D 256 tile (shared memory) and the D 64 tile (registers: two blocks share
+    an SM there)."""
+    return 128 if tile_dim(head_dim) == 128 else 64
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorMap:
     """The TMA tensor map of one ``(B, S, H, D)`` bf16 operand.
 
-    ``dims`` innermost first: D, then the head, row and batch axes in order of
+    ``dims`` innermost first: the real head dim D (TMA fills a box's columns
+    past it with zeros), then the head, row and batch axes in order of
     increasing stride (an axis of extent 1 goes last); ``strides`` in bytes, of
     dims 1..3; ``box`` the tile one load copies (64 columns, ``rows`` rows);
     ``slots`` the dim (1..3) that holds the head, the row and the batch axis.
@@ -102,11 +118,14 @@ class TensorMap:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """What a launch runs: the route (``"wgmma"`` for bf16, ``"fp32"``), its
-    q and kv tile rows, and on the bf16 route the tensor maps of q, k, v."""
+    q and kv tile rows, the head dim and the tile's D that carries it, and on
+    the bf16 route the tensor maps of q, k, v."""
 
     route: str
     block_q: int
     block_k: int
+    head_dim: int
+    tile_d: int
     maps: Tuple[TensorMap, ...] = ()
 
 
@@ -144,16 +163,19 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     """The launch's route and tiles for these inputs (no card needed); raises
     on a bf16 layout the route cannot load. Plans are cached by the inputs'
     shapes, strides and alignment, which is all they depend on."""
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {q.shape[3]} not in {HEAD_DIMS}")
     if q.dtype == torch.float32:
-        return Plan("fp32", 64, 64)
+        return Plan("fp32", 64, 64, q.shape[3], tile_dim(q.shape[3], q.dtype))
     return _bf16_plan(*((tuple(t.shape), t.stride(), t.element_size(), t.data_ptr() % 16) for t in (q, k, v)))
 
 
 @functools.lru_cache(maxsize=256)
 def _bf16_plan(q_meta, k_meta, v_meta) -> Plan:
-    bk = block_k(q_meta[0][3])
-    return Plan("wgmma", BLOCK_Q, bk, (_tensor_map("q", *q_meta, BLOCK_Q), _tensor_map("k", *k_meta, bk),
-                                       _tensor_map("v", *v_meta, bk)))
+    D = q_meta[0][3]
+    bk = block_k(D)
+    return Plan("wgmma", BLOCK_Q, bk, D, tile_dim(D), (
+        _tensor_map("q", *q_meta, BLOCK_Q), _tensor_map("k", *k_meta, bk), _tensor_map("v", *v_meta, bk)))
 
 
 @functools.lru_cache(maxsize=256)
@@ -207,7 +229,6 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention on the card; see :func:`repro_torch.kernels.ref.attention_ref`."""
-    global LAUNCHES
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
@@ -217,14 +238,23 @@ def flash_attention(
         raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
     if q.dtype == torch.bfloat16 and scale is not None and not scale > 0:
         raise ValueError(f"flash_attention: the bf16 route takes a scale > 0, got {scale}")
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
     p = plan(q, k, v)
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if Sk == 0:
+    if k.shape[1] == 0:
         return out.zero_()
+    _launch(q, k, v, out, p, causal=causal, window=window, softcap=softcap, q_offset=q_offset, scale=scale)
+    return out
+
+
+def _launch(q, k, v, out, p: Plan, *, causal, window, softcap, q_offset, scale) -> None:
+    """Launches the kernel on checked inputs into ``out``, a contiguous
+    ``(B, Sq, Hq, D)`` tensor of q's type on q's card, which it writes and
+    nothing around it."""
+    global LAUNCHES
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     mask = (int(causal), window or 0, q_offset,
             scale if scale is not None else 1.0 / math.sqrt(D), softcap or 0.0)
     with torch.cuda.device(q.device):
@@ -240,4 +270,3 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
-    return out

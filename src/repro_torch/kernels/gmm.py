@@ -10,28 +10,43 @@ divisor of M, 1 included (a decode step's one copy per expert). Same
 function as :func:`repro_torch.kernels.ref.gmm_ref` with every group
 ``block_m`` rows long per id.
 
-bf16 inputs run on the tensor cores (``mma.sync``), fp32 inputs on the CUDA
-cores (no TF32). This wrapper only launches: a tensor that is not on a card,
-or anything else the kernel does not take, raises. The CPU path is
-``ops.gmm``'s choice of the plain version, never a fallback here.
+The inputs pick the route (:func:`plan`): bf16 with row blocks of more than
+16 rows (the prefill products) runs on ``wgmma`` with lhs and rhs fed by TMA
+into a ring of shared-memory tiles and the output stored by TMA, in a
+persistent schedule; bf16 with row
+blocks of at most 16 rows (the decode step) on ``mma.sync`` tiles of 16 rows;
+fp32 on the CUDA cores (no TF32). All count in :data:`LAUNCHES`.
+
+This wrapper only launches: a tensor that is not on a card, or anything else
+the kernel does not take, raises. The CPU path is ``ops.gmm``'s choice of the
+plain version, never a fallback here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["gmm", "LAUNCHES"]
+__all__ = ["gmm", "plan", "LAUNCHES", "Plan", "TensorMap"]
 
 #: launches of the kernel in this process (incremented once per launch)
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 2**31 - 1
+_TMA_ERR = 10000  # the entry returns this plus the CUresult of a refused tensor map
+
+#: bf16 row blocks of at most this many rows take the small mma.sync tile
+SMALL_BLOCK_M = 16
+#: the wgmma route's output tile (two warpgroups of 64 rows) and K step (one
+#: 128-byte swizzle row of bf16, the width of every TMA box)
+TILE_M, TILE_N, BLOCK_K = 128, 256, 64
 
 _fn = None
 
@@ -40,9 +55,83 @@ def _forward_fn():
     global _fn
     if _fn is None:
         _fn = _build.load("gmm").gmm_forward
-        _fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        _fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         _fn.restype = ctypes.c_int
     return _fn
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """The TMA tensor map of a contiguous operand as a 4-D tensor: ``dims``
+    innermost first (axes of extent 1 pad it to four), ``strides`` in bytes
+    of dims 1..3, ``box`` the tile one load or store copies."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+
+    def flat(self) -> Tuple[int, ...]:
+        """The 11 numbers the kernel's entry point reads for this operand."""
+        return (*self.dims, *self.strides, *self.box)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What a launch runs: the route (``"wgmma"``, ``"mma_sync"`` or
+    ``"fp32"``), the row block, the output tile, and on the wgmma route the
+    tensor maps of lhs, as (K, M), of rhs, as (N, K, G), and of the output, as
+    (N, block_m, M / block_m): its stores stop at the end of a row block."""
+
+    route: str
+    block_m: int
+    tile_m: int
+    tile_n: int
+    maps: Tuple[TensorMap, ...] = ()
+
+
+def _map(dims, box, size=2) -> TensorMap:
+    """The map of a contiguous tensor of these dims (innermost first) and
+    element size; an axis of extent 1 pads the rank to four, at the tensor's
+    whole span."""
+    strides, step = [], size
+    for extent in dims[:-1]:
+        step *= extent
+        strides.append(step)
+    span = step * dims[-1]
+    pad = 4 - len(dims)
+    return TensorMap(dims=(*dims, *[1] * pad), strides=(*strides, *[span] * pad),
+                     box=(*box, *[1] * (4 - len(box))))
+
+
+def plan(lhs: torch.Tensor, rhs: torch.Tensor, group_ids: torch.Tensor,
+         out_dtype: Optional[torch.dtype] = None) -> Plan:
+    """The launch's route, tile and tensor maps for these inputs and output
+    type (lhs's by default); no card needed: they depend on the shapes and
+    the types alone."""
+    return _plan(tuple(lhs.shape), tuple(rhs.shape), group_ids.shape[0], lhs.dtype, out_dtype or lhs.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(lhs_shape, rhs_shape, n_blocks, dtype, out_dtype) -> Plan:
+    (M, K), (G, _, N) = lhs_shape, rhs_shape
+    block_m = M // n_blocks
+    if dtype == torch.float32:
+        return Plan("fp32", block_m, 64, 64)
+    if block_m <= SMALL_BLOCK_M:
+        return Plan("mma_sync", block_m, 16, 64)
+    size = torch.finfo(out_dtype).bits // 8
+    # a store box is one 128-byte swizzle row wide, a warpgroup's 64 rows high
+    return Plan("wgmma", block_m, TILE_M, TILE_N, (
+        _map((K, M), (BLOCK_K, TILE_M)), _map((N, K, G), (64, BLOCK_K)),
+        _map((N, block_m, n_blocks), (128 // size, 64), size)))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(p: Plan) -> ctypes.Array:
+    """The 33 numbers of a wgmma plan as the C array the kernel's entry point reads."""
+    flat = [x for m in p.maps for x in m.flat()]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _check(lhs, rhs, group_ids, out_dtype) -> None:
@@ -100,13 +189,16 @@ def gmm(
     out = torch.empty((M, N), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out
+    p = plan(lhs, rhs, group_ids, out_dtype)
     fn = _forward_fn()
     with torch.cuda.device(lhs.device):
         err = fn(
             lhs.data_ptr(), rhs.data_ptr(), group_ids.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[out_dtype], M, K, N, G, M // group_ids.shape[0],
-            torch.cuda.current_stream(lhs.device).cuda_stream,
+            _DTYPE_CODES[lhs.dtype], _DTYPE_CODES[out_dtype], M, K, N, G, p.block_m,
+            _plan_array(p) if p.maps else None, torch.cuda.current_stream(lhs.device).cuda_stream,
         )
+    if err >= _TMA_ERR:
+        raise RuntimeError(f"gmm: the CUDA driver refused a TMA tensor map (CUresult {err - _TMA_ERR})")
     if err != 0:
         raise RuntimeError(f"gmm: kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1

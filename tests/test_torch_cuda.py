@@ -36,6 +36,18 @@ CASES = [
     (1, 128, 128, 4, 4, 256, True, 64, None, 0, "float32"),
     (2, 100, 77, 4, 1, 256, True, 30, None, 5, "bfloat16"),
 ]
+# head dims without a tile of their own on the bf16 route (80, 96 run in the
+# D 128 tile, 192 in the D 256 one; the fp32 route has a D 192 tile), causal
+# with GQA and windowed; Sq and Sk multiples of no tile
+ODD_D_CASES = [
+    (2, 200, 200, 6, 2, 80, True, None, None, 0, "float32"),
+    (1, 256, 256, 4, 1, 80, True, 64, None, 0, "float32"),
+    (2, 130, 130, 8, 2, 96, True, None, None, 0, "float32"),
+    (1, 256, 300, 4, 4, 96, True, 100, None, 44, "float32"),
+    (1, 200, 200, 4, 2, 192, True, None, None, 0, "float32"),
+    (2, 128, 128, 2, 1, 192, True, 50, None, 0, "float32"),
+]
+CASES += ODD_D_CASES
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -80,12 +92,12 @@ def test_kernel_reads_strided_rows(card):
 # the bf16 route (wgmma, TMA): a bf16 twin of every fp32 case above, then Sq and
 # Sk that are multiples of neither the q tile (128) nor a kv tile (128, or 64
 # at D 256), at each head dim, with q_offset, window and softcap between them
-BF16_CASES = [c[:-1] + ("bfloat16",) for c in CASES if c[-1] == "float32"] + [
+BF16_CASES = [c[:-1] + ("bfloat16",) for c in CASES[:8] if c[-1] == "float32"] + [
     (2, 300, 333, 6, 2, 64, True, None, None, 33, "bfloat16"),
     (1, 77, 200, 4, 4, 128, False, None, 30.0, 0, "bfloat16"),
     (2, 333, 300, 2, 1, 256, True, 100, None, 0, "bfloat16"),
     (1, 129, 65, 8, 2, 64, False, 40, None, 70, "bfloat16"),
-]
+] + [c[:-1] + ("bfloat16",) for c in ODD_D_CASES]
 # the bf16 route's second bar (as in chip_smoke.py): row by row,
 # |out - exact| / |exact| with norms over D, exact being the plain version in
 # fp32 on the same bf16 inputs; rounding P and the output to bf16 reads a few
@@ -118,6 +130,28 @@ def test_bf16_route_reads_strided_rows(card, D):
     out = fa.flash_attention(q, k, v, window=90)
     torch.testing.assert_close(out.float(), attention_ref(q, k, v, window=90).float(), atol=2e-2, rtol=2e-2)
     assert _row_rel(out, q, k, v, window=90) <= ROW_REL_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_stores_only_its_head_dim(card, dtype):
+    """D 80 runs in the D 128 tile: of each row the epilogue stores 80 columns,
+    so the padding never lands on the next head. q, k, v are strided views of
+    one projection; the output is a view of a buffer that holds one more head
+    past it, whose bytes must stay as they were."""
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 150, 6, 80)).astype(np.float32)).to(card, getattr(torch, dtype))
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    p = fa.plan(q, k, v)
+    assert (p.head_dim, p.tile_d) == (80, 128)
+    n = q.numel()
+    buf = torch.full((n + 80,), 7.0, dtype=q.dtype, device=card)
+    out = buf[:n].view(q.shape)
+    fa._launch(q, k, v, out, p, causal=True, window=None, softcap=None, q_offset=0, scale=None)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[n:], torch.full_like(buf[n:], 7.0))
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 def test_bf16_route_rows_that_attend_nothing_are_zero(card):
@@ -412,6 +446,82 @@ def test_gmm_kernel_poisons_rows_of_a_bad_group_id(card):
     lhs, rhs = _gmm_inputs(card, [32] * 2, 64, 64, "float32", seed=2)
     out = gk.gmm(lhs, rhs, torch.tensor([0, 5], dtype=torch.int32, device=card))
     assert bool(torch.isfinite(out[:32]).all()) and bool(torch.isnan(out[32:]).all())
+
+
+# the wgmma route (bf16, row blocks of more than 16 rows) at the paths' prefill
+# shapes as (groups, rows per group, K, N): granite's up/gate and down, jamba's
+# up/gate and down; then a persistent-schedule case, 50 x 3 x 3 = 450 tiles of
+# 128 x 256, 3.4 waves of 132 SMs, with K and N multiples of no tile
+WGMMA_SHAPES = [
+    (40, 1024, 1536, 512),
+    (40, 1024, 512, 1536),
+    (16, 640, 4096, 14336),
+    (16, 640, 14336, 4096),
+    (50, 384, 136, 520),
+]
+
+
+def _card_gmm_inputs(card, G, C, K, N, seed):
+    """lhs ~ N(0, 1), rhs ~ N(0, 1/K) as the MoE's weights, drawn on the card
+    (jamba's weight stack is 0.94 G numbers)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    lhs = torch.randn((G * C, K), generator=gen, device=card).bfloat16()
+    rhs = (torch.randn((G, K, N), generator=gen, device=card) / K**0.5).bfloat16()
+    return lhs, rhs
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=["granite_up", "granite_down", "jamba_up", "jamba_down",
+                                                    "persistent"])
+def test_gmm_wgmma_route_matches_plain_version(card, shape, out_dtype):
+    G, C, K, N = shape
+    lhs, rhs = _card_gmm_inputs(card, G, C, K, N, seed=G + K)
+    ids = torch.arange(G, dtype=torch.int32, device=card)
+    assert gk.plan(lhs, rhs, ids).route == "wgmma"
+    want = getattr(torch, out_dtype)
+    out = gk.gmm(lhs, rhs, ids, out_dtype=want)
+    ref = gmm_ref(lhs, rhs, [C] * G, out_dtype=want)
+    torch.cuda.synchronize()
+    assert out.dtype == want
+    torch.testing.assert_close(out.float(), ref.float(), atol=GMM_TOL[out_dtype], rtol=GMM_TOL[out_dtype])
+
+
+def test_gmm_wgmma_route_stores_only_its_row_block(card):
+    """Row blocks of 200 rows: each block's second tile (72 rows) reads the
+    next block's rows through TMA, multiplies them by its own group's matrix,
+    and stores only its own. Groups out of order, K and N multiples of no tile."""
+    lhs, rhs = _gmm_inputs(card, [200] * 3, 200, 72, "bfloat16", seed=6)
+    ids = torch.tensor([2, 0, 1], dtype=torch.int32, device=card)
+    assert gk.plan(lhs, rhs, ids).route == "wgmma"
+    out = gk.gmm(lhs, rhs, ids, out_dtype=torch.float32)
+    for i, g in enumerate(ids.tolist()):
+        rows = slice(200 * i, 200 * (i + 1))
+        torch.testing.assert_close(out[rows], lhs[rows].float() @ rhs[g].float(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("block_m", [128, 200])
+def test_gmm_wgmma_route_poisons_rows_of_a_bad_group_id(card, block_m):
+    """The wgmma route: a bad id's rows come out NaN, its neighbours' stay right."""
+    lhs, rhs = _gmm_inputs(card, [block_m] * 3, 128, 128, "bfloat16", seed=7)
+    ids = torch.tensor([0, 7, 1], dtype=torch.int32, device=card)
+    assert gk.plan(lhs, rhs, ids).route == "wgmma"
+    out = gk.gmm(lhs, rhs, ids)
+    bad = slice(block_m, 2 * block_m)
+    assert bool(torch.isnan(out[bad]).all())
+    for i, g in ((0, 0), (2, 1)):
+        rows = slice(block_m * i, block_m * (i + 1))
+        torch.testing.assert_close(out[rows].float(), (lhs[rows].float() @ rhs[g].float()).bfloat16().float(),
+                                   atol=1e-2, rtol=1e-2)
+
+
+def test_gmm_decode_takes_the_small_tile(card):
+    """One row an expert (every decode step) stays on the mma.sync tile."""
+    lhs, rhs = _gmm_inputs(card, [1] * 40, 1536, 512, "bfloat16", seed=8)
+    ids = torch.arange(40, dtype=torch.int32, device=card)
+    assert gk.plan(lhs, rhs, ids).route == "mma_sync"
+    torch.testing.assert_close(gk.gmm(lhs, rhs, ids).float(), gmm_ref(lhs, rhs, [1] * 40).float(),
+                               atol=1e-2, rtol=1e-2)
 
 
 def test_gmm_auto_on_card_launches_the_kernel(card):

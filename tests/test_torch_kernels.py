@@ -21,6 +21,7 @@ from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
 import repro_torch.kernels.flash_attention as fa
+import repro_torch.kernels.gmm as gk
 import repro_torch.kernels.mamba_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
@@ -85,6 +86,31 @@ def test_attention_ref_matches_jax_block_shapes(blocks):
     jfa = _f32(jax_flash_attention(*_jax(arrays, "float32"), causal=True,
                                    block_q=blocks[0], block_k=blocks[1], interpret=True))
     np.testing.assert_allclose(port, jfa, atol=2e-5, rtol=2e-5)
+
+
+# head dims that the kernel carries in a larger tile (80, 96, 192): the
+# function the card has to meet there, GQA causal and windowed
+ODD_D_CASES = [
+    (2, 128, 128, 6, 2, 80, True, None, None, 0, "float32"),
+    (1, 256, 256, 4, 1, 80, True, 64, None, 0, "float32"),
+    (1, 128, 128, 4, 2, 96, True, None, None, 0, "bfloat16"),
+    (1, 128, 256, 2, 1, 192, True, 100, None, 128, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", ODD_D_CASES, ids=[f"D{c[5]}_case{i}" for i, c in enumerate(ODD_D_CASES)])
+def test_ops_attention_at_odd_head_dims_matches_jax(case):
+    """ops.attention on the CPU (the plain version) at D 80, 96 and 192 against
+    the Pallas kernel in interpret mode and the JAX oracle, same numpy inputs;
+    the tolerances of tests/test_kernels.py (2e-5 fp32, 2e-2 bf16)."""
+    dtype = case[-1]
+    arrays = _inputs(case, seed=case[5])
+    port = _f32(ops.attention(*_port(arrays, dtype), **_kw(case)))
+    jref = _f32(jax_attention_ref(*_jax(arrays, dtype), **_kw(case)))
+    jfa = _f32(jax_flash_attention(*_jax(arrays, dtype), **_kw(case), interpret=True))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(port, jref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(port, jfa, atol=tol, rtol=tol)
 
 
 def test_attention_ref_fully_masked_rows_are_zero():
@@ -155,7 +181,42 @@ def test_plan_tiles_by_head_dim(D, bk):
 
 def test_plan_fp32_takes_the_cuda_core_route():
     q = torch.zeros(1, 16, 2, 64)
-    assert fa.plan(q, q, q) == fa.Plan("fp32", 64, 64)
+    assert fa.plan(q, q, q) == fa.Plan("fp32", 64, 64, 64, 64)
+
+
+@pytest.mark.parametrize("D,tile,bk", [(80, 128, 128), (96, 128, 128), (192, 256, 64)])
+def test_plan_carries_odd_head_dims_in_the_next_tile(D, tile, bk):
+    """80 and 96 run in the D 128 tile, 192 in the D 256 one: the maps keep the
+    real D as their innermost extent (TMA fills the box's columns past it with
+    zeros), so the row strides are those of the real rows."""
+    q = torch.zeros(2, 300, 4, D, dtype=torch.bfloat16)
+    k = torch.zeros(2, 333, 2, D, dtype=torch.bfloat16)
+    p = fa.plan(q, k, k)
+    assert (p.route, p.block_q, p.block_k, p.head_dim, p.tile_d) == ("wgmma", 128, bk, D, tile)
+    qm, km, vm = p.maps
+    assert qm == fa.TensorMap(dims=(D, 4, 300, 2), strides=(2 * D, 8 * D, 2400 * D),
+                              box=(64, 1, 128, 1), slots=(1, 2, 3))
+    assert km == vm == fa.TensorMap(dims=(D, 2, 333, 2), strides=(2 * D, 4 * D, 1332 * D),
+                                    box=(64, 1, bk, 1), slots=(1, 2, 3))
+    assert all(s % 16 == 0 for s in qm.strides)  # rows of 160, 192, 384 bytes: TMA's 16-byte rule
+    # the fp32 route has a tile of its own at 192, and carries 80 and 96 in 128
+    q32 = q.float()
+    assert fa.plan(q32, q32, q32) == fa.Plan("fp32", 64, 64, D, 192 if D == 192 else 128)
+
+
+def test_plan_refuses_head_dims_the_kernel_does_not_take():
+    for D in (32, 72, 160):
+        q = torch.zeros(1, 16, 2, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=rf"head dim {D} not in \(64, 80, 96, 128, 192, 256\)"):
+            fa.plan(q, q, q)
+
+
+def test_plan_reads_fused_qkv_views_at_head_dim_80():
+    """A fused projection at D 80: head slices 160 bytes apart, which TMA loads."""
+    qkv = torch.zeros(2, 96, 6, 80, dtype=torch.bfloat16)
+    qm, km, _ = fa.plan(qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]).maps
+    assert qm.dims == (80, 4, 96, 2) and qm.strides == (160, 960, 92160)
+    assert km.dims == (80, 96, 2, 1) and km.strides == (960, 92160, 184320) and km.slots == (3, 1, 2)
 
 
 def test_plan_reads_fused_qkv_views():
@@ -258,3 +319,53 @@ def test_mamba_ops_cuda_on_cpu_raises():
         ms.mamba_scan(*args)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.mamba_scan(*args, impl="interpret")
+
+
+# K4's host-side plan: the route by dtype and row block, and on the wgmma route
+# the TMA tensor maps of lhs (K, M), rhs (N, K, G) and the output (N, block_m,
+# M / block_m), at the paths' shapes.
+def _gmm_plan(M, K, N, G, n_blocks, dtype=torch.bfloat16, out_dtype=None):
+    return gk.plan(torch.zeros(M, K, dtype=dtype), torch.zeros(G, K, N, dtype=dtype),
+                   torch.zeros(n_blocks, dtype=torch.int32), out_dtype)
+
+
+@pytest.mark.parametrize("block_m,route", [(1, "mma_sync"), (3, "mma_sync"), (16, "mma_sync"), (17, "wgmma"),
+                                           (200, "wgmma"), (1024, "wgmma")])
+def test_gmm_plan_route_by_row_block(block_m, route):
+    p = _gmm_plan(4 * block_m, 64, 64, 4, 4)
+    assert (p.route, p.block_m) == (route, block_m)
+    assert (p.tile_m, p.tile_n) == ((128, 256) if route == "wgmma" else (16, 64))
+    assert len(p.maps) == (3 if route == "wgmma" else 0)
+    assert _gmm_plan(4 * block_m, 64, 64, 4, 4, torch.float32) == gk.Plan("fp32", block_m, 64, 64)
+
+
+# (M, K, N, G): granite's up/gate and down, jamba's up/gate and down (B 2, S 2048)
+GMM_PATH_SHAPES = {"granite_up": (40960, 1536, 512, 40), "granite_down": (40960, 512, 1536, 40),
+                   "jamba_up": (10240, 4096, 14336, 16), "jamba_down": (10240, 14336, 4096, 16)}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(GMM_PATH_SHAPES))
+def test_gmm_plan_maps_at_path_shapes(name, out_dtype):
+    M, K, N, G = GMM_PATH_SHAPES[name]
+    p = _gmm_plan(M, K, N, G, G, out_dtype=out_dtype)
+    assert p.route == "wgmma" and p.block_m == M // G
+    lm, rm, om = p.maps
+    # lhs (M, K) as (K, M, 1, 1): one box is 64 columns of the tile's 128 rows
+    assert lm == gk.TensorMap(dims=(K, M, 1, 1), strides=(2 * K, 2 * K * M, 2 * K * M), box=(64, 128, 1, 1))
+    # rhs (G, K, N) as (N, K, G, 1): a box is 64 columns of a K step's 64 rows
+    assert rm == gk.TensorMap(dims=(N, K, G, 1), strides=(2 * N, 2 * N * K, 2 * N * K * G), box=(64, 64, 1, 1))
+    # out (M, N) as (N, block_m, G, 1): rows past a row block lie outside the
+    # map, so a store box of the warpgroup's 64 rows stops at its row block
+    s, C = out_dtype.itemsize, M // G
+    assert om == gk.TensorMap(dims=(N, C, G, 1), strides=(s * N, s * N * C, s * N * M), box=(128 // s, 64, 1, 1))
+    assert all(s % 16 == 0 and s < 2**40 for m in p.maps for s in m.strides)
+    assert len(gk._plan_array(p)) == 33
+
+
+def test_gmm_plan_output_map_stops_at_row_blocks():
+    """Row blocks of 200 rows (128 + 72): the output map's row extent is the
+    row block, so the second tile's store clips at row 200 of its block."""
+    p = _gmm_plan(600, 200, 72, 3, 3, out_dtype=torch.float32)
+    assert p.route == "wgmma" and p.block_m == 200
+    assert p.maps[2].dims == (72, 200, 3, 1) and p.maps[2].box == (32, 64, 1, 1)
