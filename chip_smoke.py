@@ -43,8 +43,14 @@ Then the xlstm-350m path, full width and full depth (21 mLSTM, 3 sLSTM):
 
 12. xlstm_kernels — the chunkwise mLSTM kernel against its plain version
               (the chunked scan): the cases of tests/test_kernels.py, the
-              prefill shape and a ragged T, in fp32 and bf16; kernel, plain
-              and bound times.
+              prefill shape and a ragged T, in fp32 and bf16; per case the
+              route (bf16 on wgmma, fp32 on the CUDA cores), kernel (in a
+              CUDA graph, and eager), plain and bound times; the wgmma
+              kernels' ptxas registers and spills (none allowed); at the
+              prefill shape, the errors against an fp64 evaluation of the
+              kernel, of the plain version and, in bf16, of the precision
+              controls (the plain-torch model of the route's arithmetic with
+              split, bf16 and TF32 operands; bf16 must fail the bar).
 13. xlstm_prefill — bf16 ``forward`` on B=2, S=2048 (launch counts: 21
               mLSTM kernels, top-1 agreement with the plain path, tokens/s,
               peak memory); one fp32 mLSTM block, kernel vs plain.
@@ -177,10 +183,12 @@ MIXER_RTOL = 2e-4
 # xlstm-350m at full width and depth: 3 repeats of (mLSTM x7, sLSTM)
 XLSTM = "xlstm_350m"
 # the chunkwise mLSTM: tests/test_kernels.py MLSTM_CASES (B, T, H, D), the
-# prefill shape (H 4, D 512) and a ragged T (1000 = 15 * 64 + 40, masked in
-# the kernel's last chunk). The plain version is the chunked scan at the
-# kernel's own chunk or, for the ragged T, at the largest chunk below it that
-# divides T (50); the quadratic oracle, which sums the gates over the whole
+# prefill shape (H 4, D 512) and a ragged T (1000 = 7 * 128 + 104 on the
+# wgmma route, 15 * 64 + 40 on the CUDA-core one, masked in the kernel's last
+# chunk), each in fp32 (the CUDA-core route) and bf16 (the wgmma route, D a
+# multiple of 64). The plain version is the chunked scan at the route's own
+# chunk or, where it does not divide T, at the largest chunk below it that
+# does (125, 50); the quadratic oracle, which sums the gates over the whole
 # sequence, holds the kernel's ragged T at short T only (tests/test_torch_cuda.py)
 MLSTM_CASES = [(2, 128, 2, 64), (1, 256, 4, 64), (1, 128, 1, 128)]
 MLSTM_PREFILL = (PREFILL_B, PREFILL_S, 4, 512)
@@ -1018,11 +1026,13 @@ def _mlstm_inputs(torch, dev, B, T, H, D, dtype, seed):
 
 
 def _mlstm_bound(B, T, H, D, dtype, L):
-    """Least time of one call at chunk L: per chunk and sequence 2*L*L*D FLOP
-    for q k^T, 2*L*L*D for the weights times v, 2*L*D*D for q C and 2*L*D*D
-    for the k^T v update of C, at the peak rate for the input type (bf16 at
-    the tensor rate, fp32 on the CUDA cores); q, k, v read once and the
-    output written once in that type, the two fp32 gates read once."""
+    """Least time of one call computed at chunk L: per chunk and sequence
+    2*L*L*D FLOP for q k^T, 2*L*L*D for the weights times v, 2*L*D*D for q C
+    and 2*L*D*D for the k^T v update of C, at the peak rate for the input type
+    (bf16 at the tensor rate, fp32 on the CUDA cores); q, k, v read once and
+    the output written once in that type, the two fp32 gates read once. The
+    work grows with L, so L = 1 (the recurrent form: q C and a rank-1 update
+    of C a step) gives the function's least time, the rows' ``bound_ms``."""
     itemsize = 2 if dtype == "bfloat16" else 4
     nc = -(-T // L)
     flops = nc * B * H * (4 * L * L * D + 4 * L * D * D)
@@ -1038,11 +1048,33 @@ def _mlstm_rel(out, ref) -> float:
     return ((out - ref).abs() / (ref.abs() + 1e-2)).max().item()
 
 
+def _k3_precision(args, out, ref, exact) -> dict:
+    """At the prefill shape in bf16: the kernel's and the plain version's
+    error against an fp64 evaluation, beside the precision controls: the
+    plain-torch model of the route's arithmetic (``mlstm_rounded_scan``, fp32
+    matmuls) with W, the key-weighted k and C split into bf16 hi + lo (the
+    kernel's), rounded to bf16 once, and rounded to TF32."""
+    from repro_torch.kernels.ref import mlstm_rounded_scan
+
+    res = {"bar": MLSTM_TOL["bfloat16"], "kernel": _mlstm_rel(out, exact), "plain": _mlstm_rel(ref, exact)}
+    for operands in ("split", "bf16", "tf32"):
+        res[f"emulated_{operands}"] = _mlstm_rel(mlstm_rounded_scan(*args, operands=operands), exact)
+    return res
+
+
+# the wgmma route's kernels, as ptxas names them
+_K3_WGMMA = {"states": "states_wgmma_kernel", "output": "output_wgmma_kernel"}
+
+
 def phase_xlstm_kernels(torch, dev) -> dict:
-    """K3 against its plain version on every case, with kernel, plain and bound times."""
+    """K3 against its plain version on every case: the route, kernel (CUDA
+    graph and eager), plain and bound times; the precision controls at the
+    prefill shape."""
     import repro_torch.kernels.mlstm as ml
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import mlstm_chunked_scan
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 products in full fp32
     cases = [(f"mlstm_case_{i}", c) for i, c in enumerate(MLSTM_CASES)]
     cases += [("xlstm_prefill", MLSTM_PREFILL), ("ragged", MLSTM_RAGGED)]
     rows = []
@@ -1051,33 +1083,48 @@ def phase_xlstm_kernels(torch, dev) -> dict:
         for dtype in ("float32", "bfloat16"):
             seed += 1
             args = _mlstm_inputs(torch, dev, B, T, H, D, dtype, seed)
-            chunk = max(c for c in range(1, ml.CHUNK + 1) if T % c == 0)
+            p = ml.plan(*args[:3])
+            chunk = max(c for c in range(1, p.chunk + 1) if T % c == 0)
             plain = lambda a=args, c=chunk: mlstm_chunked_scan(*a, chunk=c)  # noqa: E731
             out, ref = ml.mlstm_chunkwise(*args), plain()
             torch.cuda.synchronize()
             rel = _mlstm_rel(out, ref)
-            if name == "xlstm_prefill" and dtype == "float32":
+            if name == "xlstm_prefill":
                 # accuracy against an fp64 evaluation: the kernel's, and the
                 # plain version's at its chunk and at the model's plain chunk
                 exact = mlstm_chunked_scan(*args, chunk=chunk, dtype=torch.float64)
-                fp64 = {"kernel": _mlstm_rel(out, exact), f"plain_chunk_{chunk}": _mlstm_rel(ref, exact),
-                        "plain_chunk_256": _mlstm_rel(mlstm_chunked_scan(*args, chunk=256), exact)}
+                if dtype == "float32":
+                    fp64 = {"kernel": _mlstm_rel(out, exact), f"plain_chunk_{chunk}": _mlstm_rel(ref, exact),
+                            "plain_chunk_256": _mlstm_rel(mlstm_chunked_scan(*args, chunk=256), exact)}
+                else:
+                    bf16_fp64 = _k3_precision(args, out, ref, exact)
                 del exact
             rows.append({
-                "case": name, "shape": (B, T, H, D), "dtype": dtype,
-                "plain_chunk": chunk,
+                "case": name, "shape": (B, T, H, D), "dtype": dtype, "route": p.route,
+                "kernel_chunk": p.chunk, "plain_chunk": chunk,
                 "rel_err": rel, "tol": MLSTM_TOL[dtype], "ok": rel < MLSTM_TOL[dtype],
                 "finite": bool(torch.isfinite(out).all()),
                 "max_abs_err": (out.float() - ref.float()).abs().max().item(),
                 "max_abs": ref.float().abs().max().item(),
-                "ms": _cuda_ms(torch, lambda a=args: ml.mlstm_chunkwise(*a)),
+                "ms": _graph_ms(torch, lambda a=args: ml.mlstm_chunkwise(*a)),
+                "ms_eager": _cuda_ms(torch, lambda a=args: ml.mlstm_chunkwise(*a)),
                 "plain_ms": _cuda_ms(torch, plain, iters=5, warmup=1),
-                **_mlstm_bound(B, T, H, D, dtype, ml.CHUNK),
+                **_mlstm_bound(B, T, H, D, dtype, 1),
+                "bound_ms_route_chunk": _mlstm_bound(B, T, H, D, dtype, p.chunk)["bound_ms"],
+                "bound_ms_chunk_64": _mlstm_bound(B, T, H, D, dtype, 64)["bound_ms"],
             })
             del args, out, ref
-    emit("xlstm_kernels", kernel_chunk=ml.CHUNK, mlstm_cases=rows,
-         tol="max|a-b|/(|b|+1e-2)", prefill_fp32_rel_err_vs_fp64=fp64)
+    ptxas = _wgmma_ptxas(_build.build_all()["mlstm"].ptxas, _K3_WGMMA)
+    emit("xlstm_kernels", mlstm_cases=rows, tol="max|a-b|/(|b|+1e-2)", prefill_fp32_rel_err_vs_fp64=fp64,
+         prefill_bf16_rel_err_vs_fp64=bf16_fp64, wgmma_ptxas=ptxas)
     check(all(r["ok"] and r["finite"] for r in rows), f"mlstm_chunkwise disagrees with its plain version: {rows}")
+    check(all(r["route"] == ("wgmma" if r["dtype"] == "bfloat16" else "cuda_cores") for r in rows),
+          f"mlstm routes: {[(r['case'], r['dtype'], r['route']) for r in rows]}")
+    check(bf16_fp64["kernel"] < MLSTM_TOL["bfloat16"] < bf16_fp64["emulated_bf16"],
+          f"mlstm bf16 precision against fp64: {bf16_fp64}")
+    check(set(ptxas) == set(_K3_WGMMA) and all("0 bytes spill stores, 0 bytes spill loads" in " ".join(lines)
+                                               for lines in ptxas.values()),
+          f"the mlstm wgmma kernels spill or are missing: {ptxas}")
     torch.cuda.empty_cache()
     prefill = next(r for r in rows if r["case"] == "xlstm_prefill" and r["dtype"] == "bfloat16")
     return {
@@ -1085,11 +1132,14 @@ def phase_xlstm_kernels(torch, dev) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm.cu",
         "replaces": "src/repro/kernels/mlstm.py:137",
+        "kernel_route": prefill["route"],
         "max_abs_err": prefill["max_abs_err"],
         "ms": prefill["ms"],
+        "ms_eager": prefill["ms_eager"],
         "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"],
         "bound_by": prefill["bound_by"],
+        "bound_ms_route_chunk": prefill["bound_ms_route_chunk"],
         "library_ms": None,  # no PyTorch call computes the chunkwise mLSTM
     }
 
@@ -1121,8 +1171,10 @@ def _slstm_loop_ms(torch, cfg, params, batch) -> list:
     return loops
 
 
-# the four launches of one K3 call, as the profiler names them
-_K3_KERNELS = ("gates_kernel", "states_kernel", "scores_kernel", "output_kernel")
+# the launches of one K3 call, as the profiler names them: the gates pass of
+# both routes, the wgmma route's two others, the CUDA-core route's three
+_K3_KERNELS = ("gates_scan_kernel", "states_wgmma_kernel", "output_wgmma_kernel",
+               "states_kernel", "scores_kernel", "output_kernel")
 
 
 def phase_xlstm_prefill(torch, dev) -> dict:
@@ -1173,7 +1225,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
         # where the time goes: one profiled prefill, 4 decode steps at batch 4,
         # and the sLSTM loops alone against an unprofiled forward
         prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), top=12,
-                                groups={"mlstm_chunkwise": _K3_KERNELS})
+                                groups={"mlstm_chunkwise": _K3_KERNELS, **{k: (k,) for k in _K3_KERNELS}})
         cache = init_cache(cfg, 4, 128)
         tok = batch["tokens"][:, :1].repeat(2, 1)
         decode_step(cfg, params, cache, tok, 0)  # warm-up
@@ -1206,6 +1258,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
     busy = prefill_prof["device_busy_ms"]
     emit("xlstm_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof,
          k3_device_ms=k3_ms, k3_share_of_busy=k3_ms / busy if busy else None,
+         k3_pass_ms={k: prefill_prof["group_ms"][k] for k in _K3_KERNELS if prefill_prof["group_ms"][k]},
          forward_ms=forward_ms, slstm_loop_ms=loops.tolist(), slstm_steps=PREFILL_S,
          slstm_loop_share_of_wall=float(loops.sum() / np.median(forward_ms)))
     check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0, "gmm": 0},

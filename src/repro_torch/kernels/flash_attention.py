@@ -129,21 +129,21 @@ class Plan:
     maps: Tuple[TensorMap, ...] = ()
 
 
-def _tensor_map(name, shape, stride, size, misalign, rows) -> TensorMap:
-    """The tensor map of a tensor of this shape, element stride and element
-    size, ``misalign`` bytes past a 16-byte boundary, for boxes of ``rows``
-    rows; raises where TMA cannot read it."""
+def _tensor_map(name, shape, stride, size, misalign, rows, kernel="flash_attention") -> TensorMap:
+    """The tensor map of a ``(B, S, H, D)`` tensor of this shape, element
+    stride and element size, ``misalign`` bytes past a 16-byte boundary, for
+    boxes of ``rows`` rows; raises (naming ``kernel``) where TMA cannot read it."""
     B, S, H, D = shape
     if misalign:
         raise ValueError(
-            f"flash_attention: {name} starts {misalign} bytes past a 16-byte boundary; "
+            f"{kernel}: {name} starts {misalign} bytes past a 16-byte boundary; "
             "the bf16 route loads it by TMA, which needs a 16-byte-aligned base"
         )
     axes = [("head", H, stride[2] * size), ("row", S, stride[1] * size), ("batch", B, stride[0] * size)]
     for axis, extent, step in axes:
         if extent > 1 and (step <= 0 or step % 16 or step >= 1 << 40):
             raise ValueError(
-                f"flash_attention: {name}'s {axis} stride is {step} bytes; the bf16 route loads "
+                f"{kernel}: {name}'s {axis} stride is {step} bytes; the bf16 route loads "
                 "it by TMA, which needs a positive multiple of 16 bytes below 2^40"
             )
     # an axis of extent 1 is never stepped: put it outermost, with a stride past the others

@@ -13,7 +13,8 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "gmm_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan"]
+__all__ = ["attention_ref", "gmm_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan",
+           "mlstm_rounded_scan"]
 
 #: the finite stand-in for -inf of the mLSTM stabiliser (empty state, causal
 #: mask): with -inf, ``b + m_prev - m_comb`` would give NaN
@@ -201,6 +202,87 @@ def mlstm_chunked_scan(
         n_p = decay[..., None] * n_p + torch.sum(kscaled, dim=-2)
         m_p = m_new
     out = torch.stack(outs).transpose(2, 3).movedim(0, 1).reshape(B, T, H, D)
+    return out.to(q.dtype)
+
+
+def _split(x: torch.Tensor) -> torch.Tensor:
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32's 10 mantissa bits, ties away from zero (cvt.rna.tf32.f32)."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+_ROUNDING = {"exact": lambda x: x, "split": _split, "bf16": lambda x: x.bfloat16().float(), "tf32": _tf32}
+
+
+def mlstm_rounded_scan(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    i_gate: torch.Tensor,  # (B, T, H)
+    f_gate: torch.Tensor,  # (B, T, H)
+    *,
+    operands: str = "split",
+    chunk: int = 128,
+) -> torch.Tensor:
+    """The chunked scan with the rounding of the CUDA kernel's wgmma route
+    (``kernels/csrc/mlstm.cu``), fp32 inside, any T: a model of where that
+    route rounds, for checking a precision plan without the card.
+
+    As the kernel: S = q k^T from the inputs as they are; W = S / sqrt(D)
+    times the decay matrix, its row sums, q.n and the denominator in fp32 from
+    unrounded values; the numerator q C (scaled per row) plus W v, where W,
+    the key-weighted k (k kw / sqrt(D)) of the state update and the state C
+    enter the products rounded by ``operands``: ``"split"`` (bf16 hi + lo, the
+    kernel), ``"bf16"`` (once), ``"tf32"``, or ``"exact"`` (fp32). Ragged T is
+    padded as the kernel masks it. Output in q's type.
+    """
+    rnd = _ROUNDING[operands]
+    B, T, H, D = q.shape
+    L = chunk
+    nc = -(-T // L)
+    pad = nc * L - T
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+
+    def rs(x: torch.Tensor) -> torch.Tensor:  # (B, T, H, *) -> (nc, B, H, L, *), zeros past T
+        x = F.pad(x.to(f32), (0, 0) * (x.dim() - 2) + (0, pad))
+        return x.reshape(B, nc, L, H, *x.shape[3:]).movedim(1, 0).transpose(2, 3)
+
+    qf, kf, vf, ii = rs(q), rs(k), rs(v), rs(i_gate)
+    lf = F.logsigmoid(rs(f_gate))
+    t_idx = torch.arange(L, device=q.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+    C = torch.zeros((B, H, D, D), dtype=f32, device=q.device)
+    n = torch.zeros((B, H, D), dtype=f32, device=q.device)
+    m = torch.full((B, H), NEG_INF, dtype=f32, device=q.device)
+    outs = []
+    for c in range(nc):
+        qc, kc, vc, ic, lc = qf[c], kf[c], vf[c], ii[c], lf[c]
+        b = torch.cumsum(lc, dim=-1)
+        g = b[..., -1]
+        Dm = torch.where(causal, b[..., :, None] - b[..., None, :] + ic[..., None, :],
+                         torch.full((), NEG_INF, dtype=f32, device=q.device))
+        m_inter = b + m[..., None]
+        m_comb = torch.maximum(Dm.amax(-1), m_inter)
+        W = (qc @ kc.transpose(-1, -2)) * scale * torch.exp(Dm - m_comb[..., None])
+        iw = torch.exp(m_inter - m_comb)
+        den = W.sum(-1) + iw * (qc @ n[..., None])[..., 0]
+        den = torch.maximum(den.abs(), torch.exp(-m_comb))
+        num = (qc @ rnd(C)) * iw[..., None] + rnd(W) @ vc
+        outs.append(num / den[..., None])
+        key = g[..., None] - b + ic
+        m_new = torch.maximum(g + m, key.amax(-1))
+        decay = torch.exp(g + m - m_new)
+        kwk = kc * (scale * torch.exp(key - m_new[..., None]))[..., None]
+        C = decay[..., None, None] * C + rnd(kwk).transpose(-1, -2) @ vc
+        n = decay[..., None] * n + kwk.sum(-2)
+        m = m_new
+    out = torch.stack(outs).transpose(2, 3).movedim(0, 1).reshape(B, nc * L, H, D)[:, :T]
     return out.to(q.dtype)
 
 

@@ -20,6 +20,7 @@ from repro_torch.kernels.ref import (
     mamba_scan_ref,
     mlstm_chunked_scan,
     mlstm_chunkwise_ref,
+    mlstm_rounded_scan,
 )
 
 pytestmark = pytest.mark.cuda
@@ -374,6 +375,113 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(card):
         ml.mlstm_chunkwise(q, k, v, ig.bfloat16(), fg)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         ml.mlstm_chunkwise(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, ig, fg)
+
+
+# K3's wgmma route (bf16, D % 64 == 0, D <= 512): chunk 128, every fp32
+# operand of a numerator product split into bf16 hi and lo
+
+
+@pytest.mark.parametrize("case", MLSTM_CASES, ids=[f"case{i}" for i in range(len(MLSTM_CASES))])
+def test_mlstm_wgmma_route_matches_plain_version(card, case):
+    """Every MLSTM_CASES shape in bf16 runs the wgmma route, within the bf16
+    bar of the plain version at the route's chunk (or T, where shorter)."""
+    B, T, H, D, _ = case
+    args = _mlstm_inputs(card, B, T, H, D, "bfloat16", seed=3)
+    p = ml.plan(*args[:3])
+    assert p.route == "wgmma" and p.chunk == ml.WGMMA_CHUNK
+    out = ml.mlstm_chunkwise(*args)
+    ref = mlstm_chunked_scan(*args, chunk=min(p.chunk, T))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    assert bool(torch.isfinite(out).all())
+    assert _mlstm_rel(out, ref) < MLSTM_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("T", [100, 3 * ml.WGMMA_CHUNK + 17])
+def test_mlstm_wgmma_route_masks_ragged_T(card, T):
+    """bf16, T no multiple of the route's chunk (and shorter than one chunk):
+    the short last chunk is masked; the quadratic oracle takes any T."""
+    args = _mlstm_inputs(card, 2, T, 2, 64, "bfloat16", seed=4)
+    assert ml.plan(*args[:3]).route == "wgmma"
+    out = ml.mlstm_chunkwise(*args)
+    assert _mlstm_rel(out, mlstm_chunkwise_ref(*args)) < MLSTM_TOL["bfloat16"]
+
+
+def test_mlstm_wgmma_route_reads_strided_inputs(card):
+    """bf16 q, k, v as head-major views of one (B, H, T, 3D) tensor and gates as
+    views of a (B, H, T, 2) tensor, through the TMA maps: bit-equal to the
+    contiguous inputs."""
+    B, T, H, D = 2, 320, 2, 128
+    q, k, v, ig, fg = _mlstm_inputs(card, B, T, H, D, "bfloat16", seed=5)
+    qkv = torch.cat([q, k, v], dim=-1).transpose(1, 2).contiguous()  # (B, H, T, 3D)
+    gates = torch.stack([ig, fg], dim=-1).transpose(1, 2).contiguous()  # (B, H, T, 2)
+    views = [qkv[..., i * D:(i + 1) * D].transpose(1, 2) for i in range(3)]
+    views += [gates[..., 0].transpose(1, 2), gates[..., 1].transpose(1, 2)]
+    assert not any(t.is_contiguous() for t in views)
+    assert ml.plan(*views[:3]).route == "wgmma"
+    out = ml.mlstm_chunkwise(*views)
+    torch.testing.assert_close(out, ml.mlstm_chunkwise(q, k, v, ig, fg), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_mlstm_bf16_head_dims_off_64_take_the_cuda_core_route(card, D):
+    args = _mlstm_inputs(card, 1, 192, 2, D, "bfloat16", seed=6)
+    p = ml.plan(*args[:3])
+    assert p.route == "cuda_cores" and p.chunk == ml.CHUNK
+    before = ml.LAUNCHES
+    out = ml.mlstm_chunkwise(*args)
+    assert ml.LAUNCHES == before + 1
+    assert _mlstm_rel(out, mlstm_chunked_scan(*args, chunk=ml.CHUNK)) < MLSTM_TOL["bfloat16"]
+
+
+def test_mlstm_wgmma_plan_matches_the_kernels_shared_memory(card):
+    lib = ml._library()
+    for D in (64, 192, 512):
+        q = torch.zeros(1, 256, 1, D, dtype=torch.bfloat16, device=card)
+        smem = dict(ml.plan(q, q, q).smem)
+        assert smem == {"states": lib.ml_wgmma_smem_bytes(D, 0), "output": lib.ml_wgmma_smem_bytes(D, 1)}
+        assert max(smem.values()) <= ml.SMEM_LIMIT
+
+
+def test_mlstm_wgmma_split_beats_plain_bf16_operands(card):
+    """The precision control: the route's arithmetic with W, the key-weighted
+    k and C rounded to bf16 once (the plain-torch model, in fp32 on the CPU)
+    fails the bf16 bar where the kernel's split operands hold it."""
+    args = _mlstm_inputs(card, 1, 512, 2, 128, "bfloat16", seed=0)
+    ref = mlstm_chunked_scan(*args, chunk=ml.WGMMA_CHUNK)
+    split = _mlstm_rel(ml.mlstm_chunkwise(*args), ref)
+    plain = _mlstm_rel(mlstm_rounded_scan(*(a.cpu() for a in args), operands="bf16"), ref.cpu())
+    assert split < MLSTM_TOL["bfloat16"] < plain
+
+
+@pytest.mark.parametrize("T", [3 * ml.WGMMA_CHUNK, 2 * ml.WGMMA_CHUNK + 45])
+@pytest.mark.parametrize("D", [192, 256])
+def test_mlstm_wgmma_route_covers_every_tile_layout(card, D, T):
+    """bf16 at D 192, where the last 128-column tile of C and of the output
+    lies half past D (TMA zero-fills and clips at a non-zero origin, the n
+    store's guard is live), and at D 256 (whole tiles), T whole or ragged:
+    against the chunked scan at the route's chunk on the inputs zero-padded to
+    whole chunks (causal: the padding changes no earlier step)."""
+    args = _mlstm_inputs(card, 2, T, 2, D, "bfloat16", seed=7)
+    p = ml.plan(*args[:3])
+    assert p.route == "wgmma"
+    out = ml.mlstm_chunkwise(*args)
+    pad = -(-T // p.chunk) * p.chunk - T
+    padded = [torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in args]
+    ref = mlstm_chunked_scan(*padded, chunk=p.chunk)[:, :T]
+    torch.cuda.synchronize()
+    assert out.shape == args[0].shape and bool(torch.isfinite(out).all())
+    assert _mlstm_rel(out, ref) < MLSTM_TOL["bfloat16"]
+
+
+def test_mlstm_wgmma_route_refuses_what_tma_cannot_load(card):
+    q, k, v, ig, fg = _mlstm_inputs(card, 1, 128, 2, 64, "bfloat16")
+    flat = torch.zeros(1 + 128 * 2 * 64, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ml.mlstm_chunkwise(flat[1:].view(1, 128, 2, 64), k, v, ig, fg)
+    wide = torch.zeros(1, 128, 2, 68, dtype=torch.bfloat16, device=card)[..., :64]  # rows of 136 bytes
+    with pytest.raises(ValueError, match="stride"):
+        ml.mlstm_chunkwise(q, wide, v, ig, fg)
 
 
 # tests/test_kernels.py gmm cases as (group sizes, K, N), with every group one

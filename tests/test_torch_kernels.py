@@ -18,13 +18,21 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan
+from repro.kernels.mlstm import mlstm_chunkwise as jax_mlstm_chunkwise
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
 import repro_torch.kernels.flash_attention as fa
 import repro_torch.kernels.gmm as gk
 import repro_torch.kernels.mamba_scan as ms
+import repro_torch.kernels.mlstm as ml
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref, mamba_scan_ref
+from repro_torch.kernels.ref import (
+    attention_ref,
+    mamba_scan_ref,
+    mlstm_chunked_scan,
+    mlstm_chunkwise_ref,
+    mlstm_rounded_scan,
+)
 
 # tests/test_kernels.py ATTN_CASES: B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset, dtype
 ATTN_CASES = [
@@ -369,3 +377,135 @@ def test_gmm_plan_output_map_stops_at_row_blocks():
     p = _gmm_plan(600, 200, 72, 3, 3, out_dtype=torch.float32)
     assert p.route == "wgmma" and p.block_m == 200
     assert p.maps[2].dims == (72, 200, 3, 1) and p.maps[2].box == (32, 64, 1, 1)
+
+
+# K3's host-side plan: the route by dtype and head dim (bf16 with D % 64 == 0
+# and D <= 512 on wgmma, chunk 128; every other bf16 D and fp32 on the CUDA
+# cores, chunk 64), the grids, the shared memory, and on the wgmma route the
+# TMA tensor maps of q, k, v and the state scratch, with its refusals.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128, 512, 576])
+def test_mlstm_plan_route_by_dtype_and_head_dim(D, dtype):
+    B, T, H = 2, 1000, 4
+    q = torch.zeros(B, T, H, D, dtype=dtype)
+    p = ml.plan(q, q, q)
+    if dtype == torch.bfloat16 and D in (64, 128, 512):
+        nc, nt = 8, -(-D // 128)  # 1000 = 7 * 128 + 104
+        assert (p.route, p.chunk) == ("wgmma", ml.WGMMA_CHUNK)
+        assert p.grids == (("gates", (8, 1, 1)), ("states", (nt * nt, 8, 1)), ("output", (nc, 8, 1)))
+        smem = dict(p.smem)
+        assert smem["states"] == 199712 and smem["output"] == 1024 + D * 256 + 98304 + 112 + 512
+        assert max(smem.values()) <= ml.SMEM_LIMIT
+        assert len(p.maps) == 5 and len(ml._plan_array(p)) == 70
+    else:
+        nc, nd = 16, -(-D // 64)  # 1000 = 15 * 64 + 40
+        assert p == ml.Plan("cuda_cores", ml.CHUNK, (("gates", (8, 1, 1)), ("states", (nd * nd, 8, 1)),
+                                                     ("scores", (nc, 8, 1)), ("output", (nd, nc, 8))))
+
+
+def test_mlstm_plan_maps_at_the_prefill_shape():
+    """xlstm-350m's prefill (B 2, T 2048, H 4, D 512): boxes of 64 columns and
+    one chunk of rows; the state scratch (B*H*nc, 2 * 4 tiles, D, 128) in
+    boxes of 64 x 64; the output in boxes of 64 rows; one chunk-long sequence
+    launches no states pass."""
+    q = torch.zeros(2, 2048, 4, 512, dtype=torch.bfloat16)
+    p = ml.plan(q, q, q)
+    qm, km, vm, cm, om = p.maps
+    assert qm == km == vm == fa.TensorMap(dims=(512, 4, 2048, 2), strides=(1024, 4096, 8388608),
+                                          box=(64, 1, 128, 1), slots=(1, 2, 3))
+    assert cm == fa.TensorMap(dims=(128, 512, 8, 128), strides=(256, 131072, 1048576), box=(64, 64, 1, 1),
+                              slots=(0, 0, 0))
+    assert om == fa.TensorMap(dims=(512, 4, 2048, 2), strides=(1024, 4096, 8388608), box=(64, 1, 64, 1),
+                              slots=(1, 2, 3))
+    assert p.grids[1] == ("states", (16, 8, 1)) and p.grids[2] == ("output", (16, 8, 1))
+    short = torch.zeros(1, 100, 2, 64, dtype=torch.bfloat16)
+    assert [name for name, _ in ml.plan(short, short, short).grids] == ["gates", "output"]
+
+
+def test_mlstm_plan_reads_strided_views():
+    """q, k, v as head-major slices of one (B, H, T, 3D) projection: every axis
+    but D strided, the map's dims ordered by stride, no copy."""
+    B, T, H, D = 2, 320, 2, 128
+    qkv = torch.zeros(B, H, T, 3 * D, dtype=torch.bfloat16)
+    q, k, v = (qkv[..., i * D:(i + 1) * D].transpose(1, 2) for i in range(3))
+    maps = ml.plan(q, k, v).maps
+    for m in maps[:3]:
+        assert m.dims == (D, T, H, B) and m.strides == (768, 245760, 491520)
+        assert m.box == (64, 128, 1, 1) and m.slots == (2, 1, 3)
+
+
+def test_mlstm_plan_refuses_what_it_cannot_launch():
+    k = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(1 + 128 * 2 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="mlstm: q starts 2 bytes past a 16-byte boundary"):
+        ml.plan(flat[1:].view(1, 128, 2, 64), k, k)
+    odd_heads = torch.zeros(1, 128, 2, 68, dtype=torch.bfloat16)[..., :64]  # heads 136 bytes apart
+    with pytest.raises(ValueError, match="mlstm: v's head stride is 136 bytes"):
+        ml.plan(k, k, odd_heads)
+    # fp32 takes no TMA: the CUDA-core route reads the same layout
+    odd32 = torch.zeros(1, 128, 2, 68)[..., :64]
+    assert ml.plan(odd32, odd32, odd32).route == "cuda_cores"
+    long_t = torch.zeros(1, dtype=torch.bfloat16).expand(1, 128 * 65535 + 1, 1, 64)
+    with pytest.raises(ValueError, match="65536 chunks exceed 65535"):
+        ml.plan(long_t, long_t, long_t)
+    many = torch.zeros(1, dtype=torch.float32).expand(65536, 64, 1, 64)
+    with pytest.raises(ValueError, match="B\\*H=65536 sequences"):
+        ml.plan(many, many, many)
+
+
+# The wgmma route's precision plan in plain torch (mlstm_rounded_scan): W, the
+# key-weighted k and the state split into bf16 hi + lo, the denominator from
+# fp32 values. It holds the bf16 bar against the chunked scan and against the
+# Pallas kernel (interpret mode) at the route's chunk; the same arithmetic
+# with those operands rounded to bf16 once fails it (the cancelling
+# denominator amplifies their 2^-9 error).
+MLSTM_EMU_SHAPE = (1, 512, 2, 128)
+MLSTM_BF16_TOL = 1e-2
+
+
+def _mlstm_arrays(B, T, H, D, seed=0):
+    """The inputs of tests/test_kernels.py: q, k, v ~ N(0, 1), i ~ N(0, 1), f ~ N(2, 2)."""
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((B, T, H, D)).astype(np.float32) for _ in range(3)]
+    gates = [rng.standard_normal((B, T, H)).astype(np.float32),
+             (rng.standard_normal((B, T, H)) * 2.0 + 2.0).astype(np.float32)]
+    return qkv + gates
+
+
+def _mlstm_port(arrays, dtype=torch.bfloat16):
+    q, k, v, ig, fg = (torch.from_numpy(a) for a in arrays)
+    return [q.to(dtype), k.to(dtype), v.to(dtype), ig, fg]
+
+
+def _mlstm_rel(out, ref):
+    out, ref = _f32(out), _f32(ref)
+    return float((np.abs(out - ref) / (np.abs(ref) + 1e-2)).max())
+
+
+def test_mlstm_emulated_split_operands_hold_the_bf16_bar():
+    arrays = _mlstm_arrays(*MLSTM_EMU_SHAPE)
+    args = _mlstm_port(arrays)
+    ref = mlstm_chunked_scan(*args, chunk=ml.WGMMA_CHUNK)
+    jax_args = [jnp.asarray(a, jnp.bfloat16) for a in arrays[:3]] + [jnp.asarray(a) for a in arrays[3:]]
+    pallas = jax_mlstm_chunkwise(*jax_args, chunk=ml.WGMMA_CHUNK, interpret=True)
+    split = mlstm_rounded_scan(*args)
+    assert split.dtype == torch.bfloat16 and split.shape == args[0].shape
+    assert _mlstm_rel(split, ref) < MLSTM_BF16_TOL
+    assert _mlstm_rel(split, pallas) < MLSTM_BF16_TOL
+    plain = mlstm_rounded_scan(*args, operands="bf16")
+    assert _mlstm_rel(plain, ref) > MLSTM_BF16_TOL > _mlstm_rel(split, ref)
+
+
+def test_mlstm_emulated_tf32_operands_fail_the_bf16_bar():
+    args = _mlstm_port(_mlstm_arrays(*MLSTM_EMU_SHAPE))
+    ref = mlstm_chunked_scan(*args, chunk=ml.WGMMA_CHUNK)
+    assert _mlstm_rel(mlstm_rounded_scan(*args, operands="tf32"), ref) > MLSTM_BF16_TOL
+
+
+def test_mlstm_emulation_pads_a_ragged_T_as_the_kernel_masks_it():
+    """fp32 operands and inputs, T = 2 * 128 + 44: the model itself is the
+    chunkwise algorithm (the quadratic oracle within the fp32 bar)."""
+    args = _mlstm_port(_mlstm_arrays(2, 300, 2, 64, seed=1), torch.float32)
+    out = mlstm_rounded_scan(*args, operands="exact")
+    assert out.shape == args[0].shape
+    assert _mlstm_rel(out, mlstm_chunkwise_ref(*args)) < 2e-3
