@@ -29,9 +29,12 @@ Then the jamba-v0.1-52b path, full width, cut to one 8-layer pattern unit:
 
 7. jamba_kernels — the selective scan against its plain version: the cases
               of tests/test_kernels.py (2e-4 fp32, 3e-2 bf16), the jamba
-              prefill shape and a ragged one; kernel, plain and bound times;
-              flash attention at the jamba attention shape beside
-              ``scaled_dot_product_attention``.
+              prefill shape, a ragged one and a slow-decaying state (where
+              the plain scan with its state dropped every 128 steps must
+              fail the bar); per case the grid, kernel (CUDA graph, and
+              eager), plain, bound and exponential-floor times; its ptxas
+              registers and spills (none allowed); flash attention at the
+              jamba attention shape beside ``scaled_dot_product_attention``.
 8. jamba_prefill — bf16 ``forward`` on B=2, S=2048 (launch counts: 7 scans
               and 1 attention, top-1 agreement with the plain path, tokens/s,
               peak memory); one fp32 mamba mixer, kernel vs plain.
@@ -163,7 +166,7 @@ JAMBA = "jamba_v01_52b"
 JAMBA_LAYERS = 8
 # the selective scan: tests/test_kernels.py MAMBA_CASES (B, T, Di, N, x/dt type,
 # B/C type), then the jamba prefill shape and a ragged one (T and Di not
-# multiples of the kernel's 32-step chunk and 64-channel block), both with B
+# multiples of the kernel's 16-step stage and 64-channel tile), both with B
 # and C as strided slices of the x -> (dt, B, C) projection, as in the mixer
 MAMBA_CASES = [
     (2, 128, 256, 16, "float32", "float32"),
@@ -174,6 +177,21 @@ MAMBA_CASES = [
 MAMBA_PREFILL = (PREFILL_B, PREFILL_S, 8192, 16, "bfloat16", "bfloat16")
 MAMBA_RAGGED = (2, 1000, 8100, 16, "bfloat16", "bfloat16")
 MAMBA_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# a slow-decaying state, as the mixer is initialised (dt log-uniform in
+# [1e-3, 1e-1], A = -(1 .. N)), in fp32: the state lasts hundreds of steps, so
+# the plain scan with its state dropped every MAMBA_RESTART steps must fail
+# the bar here
+MAMBA_SLOW = (1, 2048, 256, 16, "float32", "float32")
+MAMBA_RESTART = 128
+# the special-function units' exponentials: 16 a clock on each of 132 SMs at
+# the H100 SXM's 1.98 GHz boost clock
+EXP_RATE = 16 * 132 * 1.98e9
+# K2's instantiations on the paths (N <= 16, 4 lanes a channel), whose ptxas
+# lines chip_smoke prints; no instantiation of csrc/mamba_scan.cu may spill
+_K2_KERNELS = {f"{x}_{bc}": f"mamba_scan_kernelI{m}Li4EE"
+               for (x, bc), m in {("float32", "float32"): "ff", ("float32", "bfloat16"): "f13__nv_bfloat16",
+                                  ("bfloat16", "float32"): "13__nv_bfloat16f",
+                                  ("bfloat16", "bfloat16"): "13__nv_bfloat16S1_"}.items()}
 DT_RANK = 256  # jamba's dt_rank = d_model / 16
 # flash attention at the jamba attention layer's shape
 JAMBA_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True, None, None, 0, "bfloat16")
@@ -752,9 +770,10 @@ def phase_serve(torch) -> None:
 # ------------------------------ jamba phases ---------------------------------
 
 
-def _scan_inputs(torch, dev, case, seed, strided_bc):
+def _scan_inputs(torch, dev, case, seed, strided_bc, slow=False):
     """The inputs of tests/test_kernels.py (dt = softplus(n) * 0.1, A = -exp(0.5 n));
-    with ``strided_bc`` B and C are slices of one (B, T, dt_rank + 2N) tensor."""
+    with ``strided_bc`` B and C are slices of one (B, T, dt_rank + 2N) tensor;
+    with ``slow`` dt is log-uniform in [1e-3, 1e-1] and A = -(1 .. N)."""
     Bsz, T, Di, N, xdt, bcdt = case
     rng = np.random.default_rng(seed)
 
@@ -763,8 +782,13 @@ def _scan_inputs(torch, dev, case, seed, strided_bc):
             dev, getattr(torch, dtype))
 
     x = t(Bsz, T, Di, dtype=xdt)
-    dt = (torch.nn.functional.softplus(t(Bsz, T, Di)) * 0.1).to(x.dtype)
-    A = -torch.exp(t(Di, N) * 0.5)
+    if slow:
+        dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (Bsz, T, Di))).astype(np.float32))
+        dt = dt.to(dev, x.dtype)
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
+    else:
+        dt = (torch.nn.functional.softplus(t(Bsz, T, Di)) * 0.1).to(x.dtype)
+        A = -torch.exp(t(Di, N) * 0.5)
     if strided_bc:
         xdbc = t(Bsz, T, DT_RANK + 2 * N, dtype=bcdt)
         Bm, Cm = xdbc[..., DT_RANK : DT_RANK + N], xdbc[..., DT_RANK + N :]
@@ -777,14 +801,21 @@ def _scan_bound(case):
     """Least time of one scan: x, dt, B, C, A, D read once and y written once
     over HBM, and 7 fp32 operations per (b, t, d, n) (dt*A, exp, dt*x*B, the
     two state terms, h*C and its sum) plus 3 per (b, t, d) (dt*x, D*x, the
-    add) over the fp32 CUDA-core rate."""
+    add) over the fp32 CUDA-core rate.
+
+    Beside it, the exponential floor: a kernel that takes one hardware
+    exponential per (b, t, d, n) spends at least B*T*Di*N of them over the
+    special-function units' rate (``EXP_RATE``: 16 a clock an SM), 0.128 ms
+    at jamba's prefill shape, twice the bytes bound."""
     Bsz, T, Di, N, xdt, bcdt = case
     xs, bs = (2 if xdt == "bfloat16" else 4), (2 if bcdt == "bfloat16" else 4)
     nbytes = 3 * Bsz * T * Di * xs + 2 * Bsz * T * N * bs + 4 * (Di * N + Di)
     ops = 7 * Bsz * T * Di * N + 3 * Bsz * T * Di
     t_ops, t_bytes = ops / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    exps = Bsz * T * Di * N
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+            "exp_floor_ms": exps / EXP_RATE * 1e3}
 
 
 def _fa_at_shape(torch, dev, case, seed) -> dict:
@@ -825,27 +856,50 @@ def _fa_at_shape(torch, dev, case, seed) -> dict:
 
 
 def phase_jamba_kernels(torch, dev):
-    """K2 against its plain version on every case, with its kernel, plain and
-    bound times for each; K1 at the jamba attention shape."""
+    """K2 against its plain version on every case, with its grid, kernel
+    (CUDA graph, and eager), plain, bound and exponential-floor times; the
+    slow-decay case beside the plain scan that drops its state; its ptxas; K1
+    at the jamba attention shape."""
     import repro_torch.kernels.mamba_scan as ms
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import mamba_scan_ref
 
     rows = []
-    cases = [(f"mamba_case_{i}", c, False) for i, c in enumerate(MAMBA_CASES)]
-    cases += [("jamba_prefill", MAMBA_PREFILL, True), ("ragged", MAMBA_RAGGED, True)]
-    for seed, (name, case, strided) in enumerate(cases):
-        args = _scan_inputs(torch, dev, case, seed, strided)
+    cases = [(f"mamba_case_{i}", c, False, False) for i, c in enumerate(MAMBA_CASES)]
+    cases += [("jamba_prefill", MAMBA_PREFILL, True, False), ("ragged", MAMBA_RAGGED, True, False),
+              ("slow_decay", MAMBA_SLOW, False, True)]
+    for seed, (name, case, strided, slow) in enumerate(cases):
+        args = _scan_inputs(torch, dev, case, seed, strided, slow)
+        p = ms.plan(*args)
         out, ref = ms.mamba_scan(*args), mamba_scan_ref(*args)
         torch.cuda.synchronize()
         tol = MAMBA_TOL[case[4]]
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
-        rows.append({"case": name, "shape": case[:4], "dtype": case[4:], "max_abs_err": err,
-                     "tol": tol, "ok": ok,
-                     "ms": _cuda_ms(torch, lambda a=args: ms.mamba_scan(*a)),
-                     "plain_ms": _cuda_ms(torch, lambda a=args: mamba_scan_ref(*a), iters=3, warmup=1),
-                     **_scan_bound(case)})
+        row = {"case": name, "shape": case[:4], "dtype": case[4:], "blocks": p.blocks, "max_abs_err": err,
+               "tol": tol, "ok": ok,
+               "ms": _graph_ms(torch, lambda a=args: ms.mamba_scan(*a)),
+               "ms_eager": _cuda_ms(torch, lambda a=args: ms.mamba_scan(*a)),
+               "plain_ms": _cuda_ms(torch, lambda a=args: mamba_scan_ref(*a), iters=3, warmup=1),
+               **_scan_bound(case)}
+        if slow:
+            # the control: the plain scan restarted from 0 every MAMBA_RESTART steps
+            x, dt, A, Bm, Cm, D = args
+            r = MAMBA_RESTART
+            dropped = torch.cat([mamba_scan_ref(x[:, s : s + r], dt[:, s : s + r], A, Bm[:, s : s + r],
+                                                Cm[:, s : s + r], D) for s in range(0, case[1], r)], dim=1)
+            row.update(control_dropped_state_max_abs_err=(dropped - ref).abs().max().item(),
+                       control_dropped_state_fails=not bool(torch.allclose(dropped, ref, atol=tol, rtol=tol)))
+            row["ok"] = ok and row["control_dropped_state_fails"]
+            del dropped
+        rows.append(row)
+        del args, out, ref
+    lines = _build.build_all()["mamba_scan"].ptxas
+    ptxas = _wgmma_ptxas(lines, _K2_KERNELS)
     check(all(r["ok"] for r in rows), f"mamba_scan disagrees with mamba_scan_ref: {rows}")
+    check(set(ptxas) == set(_K2_KERNELS) and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                                 for ln in lines if "spill" in ln),
+          f"the mamba_scan kernels spill or are missing: {ptxas}")
 
     prefill = next(r for r in rows if r["case"] == "jamba_prefill")
     ms_row = {
@@ -855,6 +909,7 @@ def phase_jamba_kernels(torch, dev):
         "replaces": "src/repro/kernels/mamba_scan.py:91",
         "max_abs_err": prefill["max_abs_err"],
         "ms": prefill["ms"],
+        "ms_eager": prefill["ms_eager"],
         "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"],
         "bound_by": prefill["bound_by"],
@@ -863,11 +918,10 @@ def phase_jamba_kernels(torch, dev):
 
     # K1 at the jamba attention shape, beside torch's fused attention
     jamba_fa = _fa_at_shape(torch, dev, JAMBA_ATTN, seed=101)
-    emit("jamba_kernels", mamba_scan_cases=rows, flash_attention_jamba_shape=jamba_fa)
+    emit("jamba_kernels", mamba_scan_cases=rows, mamba_scan_ptxas=ptxas, flash_attention_jamba_shape=jamba_fa)
     check(jamba_fa.pop("ok"), f"flash_attention disagrees with attention_ref at the jamba shape: "
           f"max |diff| {jamba_fa['max_abs_err']}, row {jamba_fa['row_rel_err']}, "
           f"fp8 control {jamba_fa['row_rel_control_fp8_p']}")
-    del args
     torch.cuda.empty_cache()
     return ms_row, jamba_fa
 

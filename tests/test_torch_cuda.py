@@ -257,8 +257,9 @@ def test_mamba_kernel_matches_plain_version(card, case):
 
 @pytest.mark.parametrize("n_state", [3, 8, 16, 32, ms.MAX_STATES])
 def test_mamba_kernel_every_state_count(card, n_state):
-    """Each count of states a lane holds (1, 2, 4, 8, 16 over 4 lanes), padded
-    where N is not a multiple of 4, gives the plain version's scan."""
+    """Each count of lanes a channel's states take (4, 8, 16 lanes of 4
+    states), padded where N is not a multiple of 4, gives the plain version's
+    scan."""
     args = _mamba_inputs(card, (2, 40, 96, n_state, "float32", "float32"), seed=2)
     out = ms.mamba_scan(*args)
     torch.testing.assert_close(out, mamba_scan_ref(*args), atol=2e-4, rtol=2e-4)
@@ -286,6 +287,72 @@ def test_mamba_kernel_rejects_what_it_does_not_take(card):
     x, dt, A, Bm, Cm, D = _mamba_inputs(card, (1, 8, 64, ms.MAX_STATES + 1, "float32", "float32"))
     with pytest.raises(ValueError, match="states"):
         ms.mamba_scan(x, dt, A, Bm, Cm, D)
+
+
+def _slow_decay_inputs(card, Bsz, T, Di, N=16, dtype="float32", seed=0):
+    """Like the mixer's init: dt log-uniform in [1e-3, 1e-1], A = -(1 .. N), so
+    the state lasts hundreds of steps and a state lost anywhere in the scan
+    shows above the bar (tests/test_torch_kernels.py)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, getattr(torch, dt))
+
+    x = t(Bsz, T, Di)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (Bsz, T, Di))).astype(np.float32))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(Di, 1).to(card)
+    return x, dt.to(card, x.dtype), A, t(Bsz, T, N), t(Bsz, T, N), t(Di, dt="float32")
+
+
+# the slow-decay case at T 2048, then T = 1, a stage and one step either way,
+# a ragged T and Di, batch 1: (B, T, Di)
+SLOW_DECAY_CASES = [(2, 2048, 256), (1, 1, 64), (1, ms.STAGE - 1, 64), (1, ms.STAGE, 64),
+                    (1, ms.STAGE + 1, 64), (1, 1000, 200)]
+
+
+@pytest.mark.parametrize("case", SLOW_DECAY_CASES, ids=[f"slow{i}" for i in range(len(SLOW_DECAY_CASES))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_kernel_holds_a_slow_decaying_state(card, case, dtype):
+    args = _slow_decay_inputs(card, *case, dtype=dtype)
+    out = ms.mamba_scan(*args)
+    ref = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    tol = MAMBA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_mamba_kernel_holds_the_bar_where_a_dropped_state_fails_it(card):
+    """Over 2048 steps the kernel holds the fp32 bar against the plain scan;
+    the plain scan with its state dropped every 128 steps fails it."""
+    args = _slow_decay_inputs(card, 1, 2048, 128, seed=1)
+    out = ms.mamba_scan(*args)
+    ref = mamba_scan_ref(*args)
+    x, dt, A, Bm, Cm, D = args
+    dropped = torch.cat([mamba_scan_ref(x[:, s : s + 128], dt[:, s : s + 128], A, Bm[:, s : s + 128],
+                                        Cm[:, s : s + 128], D) for s in range(0, 2048, 128)], dim=1)
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=2e-4)
+    assert not torch.allclose(dropped, ref, atol=2e-4, rtol=2e-4)
+
+
+def test_mamba_kernel_gives_the_same_bits_twice(card):
+    args = _mamba_inputs(card, (2, 2048, 512, 16, "bfloat16", "bfloat16"), seed=4, strided_bc=True)
+    first = ms.mamba_scan(*args)
+    assert torch.equal(first, ms.mamba_scan(*args))
+
+
+def test_mamba_kernel_replays_in_a_cuda_graph(card):
+    """A captured call replays right, twice."""
+    args = _slow_decay_inputs(card, 2, 1024, 256, dtype="bfloat16", seed=5)
+    ref = ms.mamba_scan(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ms.mamba_scan(*args)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 # tests/test_kernels.py MLSTM_CASES (B, T, H, D, L); L is the plain version's

@@ -297,12 +297,50 @@ def _mamba_jax(arrays, dtype):
     return [x.astype(getattr(jnp, dtype)), dt.astype(getattr(jnp, dtype)), *rest]
 
 
-@pytest.mark.parametrize("case", MAMBA_CASES, ids=[f"case{i}" for i in range(len(MAMBA_CASES))])
+# Inputs that remember: a ragged T below the Pallas chunk and one step past
+# it, then a slow-decay case like the mixer's init, where the state carried
+# over hundreds of steps dominates y. (B, T, Di, N, Pallas block_channels,
+# Pallas chunk, dtype, slow)
+MEMORY_CASES = [
+    (1, 100, 64, 16, 64, 100, "float32", False),
+    (2, 129, 64, 16, 64, 129, "float32", False),
+    (1, 1024, 64, 16, 64, 128, "float32", True),
+    (1, 1024, 64, 16, 64, 128, "bfloat16", True),
+]
+SLOW_CASES = [c for c in MEMORY_CASES if c[7]]
+RESTART = 128  # steps after which the control drops the state
+
+
+def _slow_decay_arrays(case, seed=0):
+    """dt log-uniform in [1e-3, 1e-1] and A = -(1 .. N), as the mamba mixer is
+    initialised: the state lasts hundreds of steps."""
+    B, T, Di, N = case[:4]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, Di)).astype(np.float32)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, T, Di))).astype(np.float32)
+    A = -np.tile(np.arange(1, N + 1, dtype=np.float32), (Di, 1))
+    rest = [rng.standard_normal(s).astype(np.float32) for s in ((B, T, N), (B, T, N), (Di,))]
+    return [x, dt, A, *rest]
+
+
+def _memory_arrays(case):
+    return _slow_decay_arrays(case) if len(case) > 7 and case[7] else _mamba_arrays(case)
+
+
+def _restarted_scan(x, dt, A, B, C, D, every=RESTART):
+    """The scan with its state dropped to 0 every ``every`` steps: the control
+    that a case sees a state lost on the way."""
+    return torch.cat([mamba_scan_ref(x[:, s : s + every], dt[:, s : s + every], A, B[:, s : s + every],
+                                     C[:, s : s + every], D) for s in range(0, x.shape[1], every)], dim=1)
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES + MEMORY_CASES,
+                         ids=[f"case{i}" for i in range(len(MAMBA_CASES + MEMORY_CASES))])
 def test_mamba_scan_ref_matches_jax(case):
-    dtype = case[-1]
-    arrays = _mamba_arrays(case)
+    dtype = case[6]
+    arrays = _memory_arrays(case)
     port = mamba_scan_ref(*_mamba_port(arrays, dtype))
-    assert port.dtype == getattr(torch, dtype)
+    assert port.dtype == getattr(torch, dtype) and port.shape == arrays[0].shape
     jref = jax_mamba_scan_ref(*_mamba_jax(arrays, dtype))
     jker = jax_mamba_scan(*_mamba_jax(arrays, dtype), block_channels=case[4], chunk=case[5],
                           interpret=True)
@@ -327,6 +365,87 @@ def test_mamba_ops_cuda_on_cpu_raises():
         ms.mamba_scan(*args)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.mamba_scan(*args, impl="interpret")
+
+
+@pytest.mark.parametrize("case", SLOW_CASES, ids=[c[6] for c in SLOW_CASES])
+def test_mamba_slow_decay_case_fails_the_bar_with_a_dropped_state(case):
+    """The control: the same inputs with the state dropped every 128 steps
+    miss the bar, so the case sees a state lost inside a long scan."""
+    dtype = case[6]
+    args = _mamba_port(_memory_arrays(case), dtype)
+    ref = mamba_scan_ref(*args).float()
+    tol = MAMBA_TOL[dtype]
+    assert not torch.allclose(_restarted_scan(*args).float(), ref, atol=tol, rtol=tol)
+
+
+def test_mamba_slow_decay_case_sees_the_state_at_every_restarts_end():
+    """In the slow-decay case the state held over from before a restart still
+    moves y by more than the fp32 bar 128 steps later, at every restart: a
+    state that is lost shows over the whole span, not only after the loss."""
+    case = SLOW_CASES[0]
+    B, T = case[:2]
+    args = _mamba_port(_memory_arrays(case), "float32")
+    held = mamba_scan_ref(*args) - _restarted_scan(*args)
+    last = held.reshape(B, T // RESTART, RESTART, -1)[:, 1:, -1].abs().amax(dim=(0, 2))
+    assert last.min() > MAMBA_TOL["float32"]
+
+
+# K2's host-side plan: the grid and shared memory by shape, and what it
+# refuses
+def _scan_tensors(B, T, Di, N, dtype=torch.bfloat16, bc_dtype=torch.bfloat16, strided=True):
+    x = torch.zeros(B, T, Di, dtype=dtype)
+    if strided:  # B and C as slices of the x -> (dt, B, C) projection, as in the mixer
+        xdbc = torch.zeros(B, T, 256 + 2 * N, dtype=bc_dtype)
+        Bm, Cm = xdbc[..., 256 : 256 + N], xdbc[..., 256 + N :]
+    else:
+        Bm, Cm = torch.zeros(B, T, N, dtype=bc_dtype), torch.zeros(B, T, N, dtype=bc_dtype)
+    return x, x.clone(), torch.zeros(Di, N), Bm, Cm, torch.zeros(Di)
+
+
+# (B, T, Di): tiles and blocks, one block per (64-channel tile, batch row)
+PLAN_CASES = [
+    ((2, 2048, 8192), 128, 256),  # jamba's prefill
+    ((1, 2048, 8192), 128, 128),  # batch 1
+    ((2, 1000, 8100), 127, 254),  # ragged T and Di
+    ((1, 1, 64), 1, 1),  # one step, one tile
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[f"plan{i}" for i in range(len(PLAN_CASES))])
+def test_mamba_plan_grid_by_shape(case):
+    (B, T, Di), tiles, blocks = case
+    p = ms.plan(*_scan_tensors(B, T, Di, 16))
+    assert (p.lanes, p.channels, p.tiles, p.blocks) == (4, 64, tiles, blocks)
+    # two stages of dt and x (64 rows of 20) and of B and C (16 x 16), and
+    # 128 rows of 36 partial y sums, in fp32: static shared memory, no opt-in
+    assert p.smem_bytes == 4 * (2 * 2 * 64 * 20 + 2 * 2 * 16 * 16 + 128 * 36) <= 48 * 1024
+
+
+@pytest.mark.parametrize("N, lanes, channels", [(1, 4, 64), (16, 4, 64), (17, 8, 32), (32, 8, 32),
+                                                (33, 16, 16), (64, 16, 16)])
+def test_mamba_plan_lanes_by_state_count(N, lanes, channels):
+    p = ms.plan(*_scan_tensors(1, 64, 100, N, strided=False))
+    assert (p.lanes, p.channels, p.tiles) == (lanes, channels, -(-100 // channels))
+
+
+def test_mamba_plan_refuses_what_the_kernel_does_not_take():
+    args = _scan_tensors(1, 64, 128, 16)
+    with pytest.raises(ValueError, match="states"):
+        ms.plan(*_scan_tensors(1, 64, 128, ms.MAX_STATES + 1, strided=False))
+    with pytest.raises(TypeError, match="float16"):
+        ms.plan(args[0].half(), args[1].half(), *args[2:])
+    with pytest.raises(TypeError, match="B and C"):
+        ms.plan(*args[:3], args[3].float(), *args[4:])
+    with pytest.raises(TypeError, match="A and D must be float32"):
+        ms.plan(*args[:2], args[2].double(), *args[3:])
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        ms.plan(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        ms.plan(*args[:3], torch.zeros(1, 64, 32, dtype=torch.bfloat16)[..., ::2], *args[4:])
+    with pytest.raises(ValueError, match="exceed the grid"):
+        ms._plan(2**31, 64, 16)
+    with pytest.raises(ValueError, match="B is"):
+        ms.plan(*args[:3], args[3][:, :-1], *args[4:])
 
 
 # K4's host-side plan: the route by dtype and row block, and on the wgmma route
