@@ -88,6 +88,29 @@ products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
               K4's launches in those steps.
 22. granite_serve — ``serve("granite_moe_3b_a800m", smoke=False, ...)``.
 
+Then the batched MIG simulator (``repro_torch.core.batched``), which runs no
+kernel of the four (its step is batched torch ops):
+
+23. sim_parity — ``simulate_batch`` on the card for the eight rows of
+              tests/test_batched.py's agreement matrix (6 seeds a row, load
+              0.2; rows of one policy kind and mode in one batch), held to
+              the port's CPU run on the same inputs and to the JAX
+              reference's aggregates in tests/data/torch_sim_golden.json
+              (integers exact; the bars of tests/test_torch_sim.py); the
+              largest difference of each aggregate per row.
+24. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
+              (a) 2048 rollouts at load 1.0, the width of the RL training run
+              of benchmarks/baselines/rl_batched.json; (b) 256 at load 12.0,
+              the headline point of benchmarks/baselines/batched_agreement.json.
+              Per size: padded J, steps and chunks, the wall time of
+              ``simulate_batch`` after a warm-up of two chunks at full
+              width, peak memory, env-steps/s, simulated
+              rollout-minutes/s, events-equivalent/s (the reference oracle's
+              event count at that load over the wall time), and over one
+              512-step chunk under torch.profiler the launches and device
+              busy time per step and the device's idle share; the first 8
+              rollouts of (b) held to the port's CPU run of them.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -237,6 +260,39 @@ GMM_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # one fp32 MoE layer, kernel vs plain: max |diff| <= MOE_RTOL * max |plain|
 MOE_RTOL = 1e-5
 
+# the batched MIG simulator: tests/test_batched.py's agreement matrix
+# (scenario, policy, repartition mode), 6 seeds a row at load 0.2, as
+# tests/test_torch_sim.py and the golden file hold it
+SIM_ROWS = [
+    ("paper-diurnal", "daynight", "partial"),
+    ("paper-diurnal", "static", "drain"),
+    ("bursty-mmpp", "static", "partial"),
+    ("bursty-mmpp", "daynight", "drain"),
+    ("weekend-flat", "nomig", "partial"),
+    ("weekend-flat", "daynight", "drain"),
+    ("heavy-tail-lognormal", "static", "drain"),
+    ("heavy-tail-lognormal", "nomig", "partial"),
+]
+SIM_SEEDS = range(6)
+SIM_LOAD = 0.2
+SIM_GOLDEN = ROOT / "tests" / "data" / "torch_sim_golden.json"
+# the bars of tests/test_torch_sim.py as (rtol, atol) of |a - b| <= atol +
+# rtol * |b|, None = exact: the card and the CPU run the same float32 ops and
+# differ only in the order of the sums over J and over the slices
+SIM_BARS = {
+    "preemptions": None, "repartitions": None, "num_jobs": None,
+    "energy_wh": (1e-5, 0.0), "busy_slot_minutes": (1e-5, 0.0),
+    "tardiness_integral": (1e-4, 1e-3),
+    "makespan_min": (0.0, 1e-3), "completion": (0.0, 1e-3), "util_histogram": (0.0, 1e-3),
+}
+# throughput, paper-diurnal under DayNight, partial, dt 0.5, as (rollouts,
+# load_scale): (a) the RL training width of benchmarks/baselines/rl_batched.json
+# (2048 episodes at loads 0.8-1.2), (b) the headline point of
+# benchmarks/baselines/batched_agreement.json (the paper's overload regime)
+SIM_SIZES = {"a": (2048, 1.0), "b": (256, 12.0)}
+SIM_AGREEMENT = ROOT / "benchmarks" / "baselines" / "batched_agreement.json"
+SIM_HELD = 8  # rollouts of (b) held to the port's CPU run
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -283,6 +339,8 @@ def main() -> int:
     granite = phase_granite_prefill(torch, dev)
     phase_granite_decode(torch, dev)
     phase_granite_serve(torch)
+    phase_sim_parity(torch)
+    phase_sim_throughput(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -702,16 +760,19 @@ def phase_decode(torch, dev) -> None:
     check(ok, f"decode_step logits disagree with forward: max abs err {err}")
 
 
-def _profile(torch, fn, top=8, groups=None) -> dict:
+def _profile(torch, fn, top=8, groups=None, host_ops=True) -> dict:
     """Device time by kernel over one call of ``fn``, and the device's idle share
     of the call's wall time (torch.profiler; null where it saw no device time).
     ``groups`` maps a label to name fragments: the device time of every kernel
-    whose name holds one of them is summed under ``group_ms``."""
+    whose name holds one of them is summed under ``group_ms``. ``host_ops=False``
+    records the device's activity alone, for a call of ~10^5 launches whose
+    host-side op events would take the profiler a minute to gather."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1684,6 +1745,235 @@ def phase_granite_serve(torch) -> None:
          ms_per_step=batch / tps * 1e3, launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "granite serve returned no rate")
     check(counts["gmm"] == 3 * n_layers * steps, f"granite serve launched {counts}")
+
+
+# ------------------------------ simulator phases -----------------------------
+
+
+def _sim_policy(policy):
+    from repro_torch.core.simulator import DayNightPolicy, NoMIGPolicy, StaticPolicy
+
+    return {"static": lambda: StaticPolicy(3), "nomig": NoMIGPolicy, "daynight": DayNightPolicy}[policy]()
+
+
+def _sim_jobs_part(seeds, load):
+    """paper-diurnal's padded jobs at ``load`` for ``seeds`` (run in a worker process)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import repro_torch.core.batched as P
+    from repro_torch.core.scenarios import generate_scenario
+
+    lists = [generate_scenario("paper-diurnal", seed=s, load_scale=load) for s in seeds]
+    return P.BatchedJobs.from_job_lists(lists, max_slots=P.build_tables().max_slots)
+
+
+def _sim_jobs(P, B, load):
+    """paper-diurnal's padded jobs for seeds 0 .. B-1, as ``BatchedJobs.from_job_lists``
+    makes them, drawn in worker processes: the seeded Python generator takes ~20 ms
+    a rollout at load 1 and ~230 ms at load 12."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    n = max(1, min(8, os.cpu_count() or 1))
+    chunks = [list(map(int, c)) for c in np.array_split(np.arange(B), n) if len(c)]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(chunks), mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_sim_jobs_part, chunks, [load] * len(chunks)))
+    J = max(p.padded_jobs for p in parts)
+
+    def stack(field, fill):
+        return np.concatenate([np.pad(a, [(0, 0), (0, J - a.shape[1])] + [(0, 0)] * (a.ndim - 2),
+                                      constant_values=fill)
+                               for a in (getattr(p, field) for p in parts)])
+
+    deadline = stack("deadline", np.inf)
+    return P.BatchedJobs(
+        arrival=stack("arrival", np.inf), deadline=deadline, work=stack("work", 0.0),
+        rate_by_slots=stack("rate_by_slots", 0.0), valid=stack("valid", False),
+        num_jobs=np.concatenate([p.num_jobs for p in parts]),
+        edf_order=np.argsort(deadline, axis=1, kind="stable").astype(np.int32))
+
+
+def _sim_group(P, rows, seeds, load):
+    """Rows of one policy kind and repartition mode as one batch: their rollouts
+    stacked, every row padded to the longest row's job count. A rollout's result
+    does not depend on the others in its batch, so each row is read back by its
+    slice of the batch."""
+    from repro_torch.core.scenarios import generate_scenario
+
+    tables = P.build_tables()
+    lists = {row: [generate_scenario(row[0], seed=s, load_scale=load) for s in seeds] for row in rows}
+    J = max(len(js) for ls in lists.values() for js in ls)
+    jobs = [P.BatchedJobs.from_job_lists(ls, max_slots=tables.max_slots, min_jobs=J)
+            for ls in lists.values()]
+    pols = [P.compile_policy(_sim_policy(row[1]), tables, len(seeds)) for row in rows]
+    jobs = dataclasses.replace(jobs[0], **{f.name: np.concatenate([getattr(j, f.name) for j in jobs])
+                                           for f in dataclasses.fields(jobs[0])})
+    pol = dataclasses.replace(pols[0], **{f: np.concatenate([getattr(p, f) for p in pols])
+                                          for f in ("initial", "primary", "secondary")})
+    return tables, jobs, pol
+
+
+def _aggregates(res, rows=slice(None)) -> dict:
+    return {f: np.asarray(getattr(res, f))[rows] for f in SIM_BARS}
+
+
+def _sim_compare(got: dict, want: dict) -> dict:
+    """Each aggregate of ``want`` against ``got`` under SIM_BARS: the largest
+    absolute (and relative) difference and whether the bar holds; the jobs
+    completed must be the same set."""
+    out, ok = {}, True
+    for f, w in want.items():
+        g, w = np.asarray(got[f], dtype=np.float64), np.asarray(w, dtype=np.float64)
+        if f == "completion":
+            done = np.isfinite(w)
+            same = bool(np.array_equal(np.isfinite(g), done))
+            out["completed_sets_equal"] = same
+            ok &= same
+            g, w = g[done], w[done]
+        diff = np.abs(g - w)
+        bar = SIM_BARS[f]
+        hold = bool(np.array_equal(g, w)) if bar is None else bool(np.all(diff <= bar[1] + bar[0] * np.abs(w)))
+        out[f] = {"max_abs": float(diff.max(initial=0.0)),
+                  "max_rel": float((diff / np.maximum(np.abs(w), 1e-30)).max(initial=0.0)), "ok": hold}
+        ok &= hold
+    out["ok"] = ok
+    return out
+
+
+def phase_sim_parity(torch) -> None:
+    """The card's ``simulate_batch`` against the port's CPU run and the reference's
+    golden aggregates, on every row of the agreement matrix."""
+    import repro_torch.core.batched as P
+
+    golden = json.loads(SIM_GOLDEN.read_text())
+    check(golden["load_scale"] == SIM_LOAD and golden["seeds"] == list(SIM_SEEDS),
+          "the golden file holds other rollouts")
+    # rows of one policy kind (nomig compiles to static) and mode run as one batch
+    groups = {}
+    for row in SIM_ROWS:
+        groups.setdefault((row[1] == "daynight", row[2]), []).append(row)
+    rows = {}
+    n = len(SIM_SEEDS)
+    _reset_counts()
+    for (_, mode), members in groups.items():
+        tables, jobs, pol = _sim_group(P, members, SIM_SEEDS, SIM_LOAD)
+        t0 = time.perf_counter()
+        card = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for i, (scenario, policy, _) in enumerate(members):
+            rid = f"{scenario}/{policy}/{mode}"
+            part = slice(i * n, (i + 1) * n)
+            gold = golden["rows"][rid]
+            rows[rid] = {
+                "batch_with": len(members), "padded_jobs": jobs.padded_jobs, "card_s": card_s,
+                "cpu_s": cpu_s, "makespan_max": float(card.makespan_min[part].max()),
+                "card_vs_cpu": _sim_compare(_aggregates(card, part), _aggregates(cpu, part)),
+                "card_vs_golden": _sim_compare(_aggregates(card, part), gold),
+                "cpu_vs_golden": _sim_compare(_aggregates(cpu, part), gold),
+                "finite": bool(np.isfinite(card.energy_wh[part]).all()
+                               and np.isfinite(card.completion[part][card.valid[part]]).all()),
+            }
+    counts = _counts()
+    emit("sim_parity", load_scale=SIM_LOAD, seeds=len(SIM_SEEDS), bars=SIM_BARS, rows=rows,
+         model_kernel_launches=counts)
+    bad = [rid for rid, r in rows.items()
+           if not (r["finite"] and r["card_vs_cpu"]["ok"] and r["card_vs_golden"]["ok"]
+                   and r["cpu_vs_golden"]["ok"])]
+    check(not bad, f"simulate_batch on the card disagrees on {bad}")
+    check(not any(counts.values()), f"the simulator launched a model kernel: {counts}")
+
+
+def phase_sim_throughput(torch) -> None:
+    """``simulate_batch`` on the card at the two sizes of SIM_SIZES: rates, and
+    over one 512-step chunk the launches and busy time per step and the idle share."""
+    import repro_torch.core.batched as P
+    from repro_torch.core.batched import backend as PB
+
+    events = {p["load_scale"]: p["oracle_events_per_rollout"]
+              for p in json.loads(SIM_AGREEMENT.read_text())["points"]}
+    chunk, dt = P.DEFAULT_CHUNK_STEPS, P.DEFAULT_DT_MIN
+    for label, (B, load) in SIM_SIZES.items():
+        t0 = time.perf_counter()
+        tables = P.build_tables()
+        jobs = _sim_jobs(P, B, load)
+        pol = P.compile_policy(_sim_policy("daynight"), tables, B)
+        setup_s = time.perf_counter() - t0
+        # the parallel draw is the serial one: the first rollouts, padded alike
+        first = _sim_jobs_part([0, 1, 2], load)
+        same = all(np.array_equal(getattr(jobs, f.name)[:3, :first.padded_jobs], getattr(first, f.name))
+                   for f in dataclasses.fields(first) if f.name not in ("num_jobs", "edf_order"))
+        check(same and np.array_equal(jobs.num_jobs[:3], first.num_jobs),
+              f"sim_throughput ({label}): the parallel job draw differs from the serial one")
+        # warm-up: two chunks at full width from t = 0 load every kernel of the
+        # step and grow the allocator's pools (the step runs the same ops at
+        # every t), and bring the rollouts to 8:32, the morning ramp, for one
+        # chunk timed alone and then under the profiler
+        consts = PB.device_constants(tables, "partial")
+        state = PB.run_steps(PB.init_state(jobs, pol.initial), jobs, pol, consts, t0_min=0.0,
+                             n_steps=2 * chunk, penalty_min=tables.penalty_min)
+
+        def one_chunk():
+            return PB.run_steps(state, jobs, pol, consts, t0_min=2 * chunk * dt, n_steps=chunk,
+                                penalty_min=tables.penalty_min)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_chunk()
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        prof = _profile(torch, one_chunk, top=10, host_ops=False)
+        profile_s = time.perf_counter() - t0
+        busy = prof["device_busy_ms"] or 0.0
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = P.simulate_batch(jobs, pol, tables=tables)  # ends in a copy to the host
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        chunks = int(res.makespan_min.max() // (chunk * dt)) + 1  # the host stops after the chunk past it
+        steps = chunks * chunk
+        check(bool(np.isfinite(res.completion[res.valid]).all() and np.isfinite(res.energy_wh).all()
+                   and (res.energy_wh > 0).all()), f"sim_throughput ({label}): unfinished or bad rollouts")
+        row = {
+            "rollouts": B, "load_scale": load, "padded_jobs": jobs.padded_jobs, "steps": steps,
+            "chunks": chunks, "makespan_max_min": float(res.makespan_min.max()), "setup_s": setup_s,
+            "wall_s": wall, "peak_gb": peak_gb,
+            "env_steps_per_s": B * steps / wall,
+            "rollout_minutes_per_s": B * steps * dt / wall,
+            "oracle_events_per_rollout": events[load],
+            "events_equiv_per_s": events[load] * B / wall,
+            "events_note": "the reference oracle's event count at this load "
+                           "(benchmarks/baselines/batched_agreement.json) over this run's wall time",
+            "chunk_wall_ms": chunk_ms,
+            "profile_s": profile_s,
+            "ms_per_step": chunk_ms / chunk,
+            "launches_per_step": prof["launches"] / chunk,
+            "device_busy_ms_per_step": busy / chunk,
+            "device_idle_share": 1 - busy / chunk_ms if busy else None,
+            "profiled_chunk": prof,
+        }
+        if label == "b":
+            # the first rollouts of (b), same padded J, run again on the CPU
+            held = slice(0, SIM_HELD)
+            j8 = dataclasses.replace(jobs, **{f.name: getattr(jobs, f.name)[held]
+                                               for f in dataclasses.fields(jobs)})
+            p8 = dataclasses.replace(pol, initial=pol.initial[held], primary=pol.primary[held],
+                                     secondary=pol.secondary[held])
+            t0 = time.perf_counter()
+            cpu = P.simulate_batch(j8, p8, tables=tables, device="cpu")
+            row["cpu_first_8_s"] = time.perf_counter() - t0
+            row["card_vs_cpu_first_8"] = _sim_compare(_aggregates(res, held), _aggregates(cpu))
+        emit("sim_throughput", size=label, **row)
+        if label == "b":
+            check(row["card_vs_cpu_first_8"]["ok"], "sim_throughput (b): the card disagrees with the CPU")
+        del state, consts, jobs, res
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

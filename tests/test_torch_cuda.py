@@ -735,3 +735,78 @@ def test_gmm_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte boundary"):
         buf = torch.empty(128 * 64 + 8, dtype=torch.bfloat16, device=card)
         gk.gmm(buf[4:4 + 128 * 64].view(128, 64), rhs, ids)  # contiguous, 8 bytes off
+
+
+# ----------------------- the batched MIG simulator -----------------------
+# simulate_batch (repro_torch.core.batched) on the card against the port's CPU
+# run of the same inputs; the bars of tests/test_torch_sim.py: integers exact,
+# energy and busy within 1e-5 relative, the tardiness integral within 1e-4
+# relative or 1e-3 absolute, minutes within 1e-3 absolute
+
+
+def _sim_row(scenario, policy, seeds, load=0.2):
+    import repro_torch.core.batched as P
+    from repro_torch.core.scenarios import generate_scenario
+    from repro_torch.core.simulator import DayNightPolicy, StaticPolicy
+
+    tables = P.build_tables()
+    lists = [generate_scenario(scenario, seed=s, load_scale=load) for s in seeds]
+    jobs = P.BatchedJobs.from_job_lists(lists, max_slots=tables.max_slots)
+    pol = {"static": lambda: StaticPolicy(3), "daynight": DayNightPolicy}[policy]()
+    return tables, jobs, P.compile_policy(pol, tables, len(lists))
+
+
+def _assert_sim_close(card_res, cpu_res):
+    for f in ("repartitions", "preemptions", "num_jobs"):
+        assert np.array_equal(getattr(card_res, f), getattr(cpu_res, f)), f
+    done = np.isfinite(cpu_res.completion)
+    assert np.array_equal(np.isfinite(card_res.completion), done)
+    np.testing.assert_allclose(card_res.completion[done], cpu_res.completion[done], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card_res.makespan_min, cpu_res.makespan_min, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card_res.energy_wh, cpu_res.energy_wh, rtol=1e-5)
+    np.testing.assert_allclose(card_res.busy_slot_minutes, cpu_res.busy_slot_minutes, rtol=1e-5)
+    np.testing.assert_allclose(card_res.tardiness_integral, cpu_res.tardiness_integral, rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(card_res.util_histogram, cpu_res.util_histogram, rtol=0, atol=1e-3)
+
+
+def test_simulate_batch_on_the_card_matches_the_cpu(card):
+    import repro_torch.core.batched as P
+
+    tables, jobs, pol = _sim_row("paper-diurnal", "daynight", range(6))
+    res = P.simulate_batch(jobs, pol, tables=tables)  # device=None: the card
+    _assert_sim_close(res, P.simulate_batch(jobs, pol, tables=tables, device="cpu"))
+
+
+def test_simulate_batch_past_the_last_block_and_into_the_sentinel(card):
+    """Rollout 0 has 3 jobs in one 32-job block, so 11 of the EDF search's 14
+    ranks run past the last block; rollout 1 queues 40 short jobs on seven
+    1-slot slices, so freed slices are handed on while every lane without a
+    handoff writes the sentinel column. An index out of range would be a
+    device-side assert at the synchronize."""
+    import repro_torch.core.batched as P
+    from repro_torch.core.jobs import LINEAR, Job, JobKind, capped
+    from repro_torch.core.simulator import StaticPolicy
+
+    few = [Job(i, JobKind.TRAINING, 0.1 * i, 30.0, 60.0 + i, LINEAR) for i in range(3)]
+    queue = [Job(i, JobKind.INFERENCE, 0.1 * i, 1.0 + 0.37 * (i % 5), 0.1 * i + 5.0 + i % 7,
+                 capped(2) if i % 2 else LINEAR) for i in range(40)]
+    tables = P.build_tables()
+    jobs = P.BatchedJobs.from_job_lists([few, queue], max_slots=tables.max_slots)
+    assert jobs.padded_jobs == 64
+    pol = P.compile_policy(StaticPolicy(12), tables, 2)
+    res = P.simulate_batch(jobs, pol, tables=tables)
+    torch.cuda.synchronize()
+    assert np.isfinite(res.completion[jobs.valid]).all()
+    _assert_sim_close(res, P.simulate_batch(jobs, pol, tables=tables, device="cpu"))
+
+
+def test_simulate_batch_repeats_bitwise_on_the_card(card):
+    import repro_torch.core.batched as P
+
+    tables, jobs, pol = _sim_row("bursty-mmpp", "static", range(4))
+    a = P.simulate_batch(jobs, pol, tables=tables, repartition_mode="drain")
+    b = P.simulate_batch(jobs, pol, tables=tables, repartition_mode="drain")
+    for f in ("repartitions", "preemptions", "num_jobs"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(np.isfinite(a.completion), np.isfinite(b.completion))

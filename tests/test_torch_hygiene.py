@@ -38,6 +38,9 @@ def forbidden_imports(source: str) -> list:
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").exists()
+    listed = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"src/repro_torch/core/{m}.py" for m in
+            ("slices", "scenarios", "batched/backend", "batched/tables")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
