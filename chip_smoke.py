@@ -111,6 +111,34 @@ kernel of the four (its step is batched torch ops):
               busy time per step and the device's idle share; the first 8
               rollouts of (b) held to the port's CPU run of them.
 
+Then the on-device DQN trainer (``repro_torch.core.rl``), whose step is the
+simulator's and whose learner is an MLP of three matmuls (no kernel of the
+four):
+
+25. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
+              runs of the port: the checked-in parameters
+              (benchmarks/baselines/rl_dqn_params.npz) give rl_batched.json's
+              params_probe (seed 123, 16 greedy actions); argmax takes the
+              first of tied maxima; one TD update at the baseline's width and
+              configuration from those parameters on a seeded batch, against
+              the port's CPU run and the reference's in
+              tests/data/torch_rl_golden.json (1e-5, DESIGN.md §11); the
+              golden file's round (B 4, H 16, n-step 3, learning on) with the
+              reference's draws replayed, against the golden file and the
+              port's CPU run (integers exact, rewards and replay 1e-6,
+              parameters 1e-5); ``BatchedRepartitionEnv`` through the golden
+              file's scripted day at B 8 (observations bit for bit, rewards,
+              flags, results).
+26. rl_train — ``train_dqn_batched`` at the baseline's configuration (B 64,
+              104 decisions of 15 minutes, n-step 8, the four training
+              scenarios at loads 0.8-1.2) for 2 rounds: wall time of each
+              round, env-steps/s, updates, the final epsilon, the finite
+              losses, peak memory, the host's time a decision (the second
+              round's wall over its 104 decisions); over 4 decisions of the
+              second round, rebuilt as the trainer pads it, with updates on:
+              the launches and device busy time per decision, and the idle
+              share against the same decisions' unprofiled wall.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -293,6 +321,22 @@ SIM_SIZES = {"a": (2048, 1.0), "b": (256, 12.0)}
 SIM_AGREEMENT = ROOT / "benchmarks" / "baselines" / "batched_agreement.json"
 SIM_HELD = 8  # rollouts of (b) held to the port's CPU run
 
+# the on-device DQN trainer: the checked-in baseline (its parameters and
+# params_probe) and the golden file that tests/test_torch_rl.py and
+# tests/test_torch_rl_train.py write from the JAX reference
+RL_BASELINE = ROOT / "benchmarks" / "baselines" / "rl_batched.json"
+RL_PARAMS = ROOT / "benchmarks" / "baselines" / "rl_dqn_params.npz"
+RL_GOLDEN = ROOT / "tests" / "data" / "torch_rl_golden.json"
+# one TD update on an identical batch (DESIGN.md §11); the round's rewards
+# and the replay's copies of them (tests/test_torch_rl_train.py)
+RL_TD_TOL = 1e-5
+RL_FLOAT_TOL = 1e-6
+# the env's float64 rewards: 1e-6 relative, or the reward of 2 float32 ulps of
+# the energy and tardiness accumulators (tests/test_torch_rl.py)
+RL_REWARD_RTOL = 1e-6
+RL_ROUNDS = 2  # rl_train: rounds of 64 episodes at the baseline's width
+RL_PROFILED = 4  # decisions of rl_train's profile
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -341,6 +385,8 @@ def main() -> int:
     phase_granite_serve(torch)
     phase_sim_parity(torch)
     phase_sim_throughput(torch)
+    phase_rl_parity(torch)
+    phase_rl_train(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -1974,6 +2020,235 @@ def phase_sim_throughput(torch) -> None:
             check(row["card_vs_cpu_first_8"]["ok"], "sim_throughput (b): the card disagrees with the CPU")
         del state, consts, jobs, res
         torch.cuda.empty_cache()
+
+
+# ----------------------------- the DQN trainer ---------------------------------
+
+
+def _rl_golden():
+    """tests/torch_rl_golden.py: the golden file's inputs and the port's runs of them."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_rl_golden
+
+    return torch_rl_golden
+
+
+def _rl_env_day(torch, g) -> dict:
+    """``BatchedRepartitionEnv`` on the card through the golden file's scripted day."""
+    import hashlib
+
+    from repro_torch.core.batched.env import BatchedRepartitionEnv
+    from repro_torch.core.rl.env import RewardWeights
+
+    env = BatchedRepartitionEnv(scenario=g["scenario"], scenario_kwargs={"load_scale": g["load_scale"]})
+    acts = _rl_golden().scripted_actions(200, len(g["seeds"]), g["action_seed"])
+    t0 = time.perf_counter()
+    obs = [env.reset(seeds=g["seeds"])]
+    rewards, term, trunc = [], [], []
+    while not env.done and len(rewards) < 200:
+        o, r, te, tr, _ = env.step(acts[len(rewards)])
+        obs.append(o)
+        rewards.append(r)
+        term.append(te)
+        trunc.append(tr)
+    wall = time.perf_counter() - t0
+    obs = np.stack(obs)
+    w = RewardWeights()
+    ulp_e = float(np.spacing(np.float32(env._state.energy_wh.max().item())))
+    ulp_t = float(np.spacing(np.float32(env._state.tardiness_integral.max().item())))
+    atol = 2 * (w.a * ulp_e + ulp_t / w.tardiness_norm) / (w.a + 1.0) / w.scale
+    rew = np.stack(rewards).ravel()
+    want = np.asarray(g["rewards"])
+    codes = np.rint(obs.astype(np.float64) * g["obs_code_scale"]).astype(np.int64).ravel().tolist()
+    res_ok, res_diff = True, {}
+    for got, gold in zip(env.results(), g["results"], strict=True):
+        row = {**{f: getattr(got, f) for f in gold if hasattr(got, f)}, **dict(got.extra)}
+        for f, v in gold.items():
+            exact = f in ("preemptions", "repartitions", "num_jobs", "deadline_misses")
+            bar = {"energy_wh": (1e-5, 0.0), "busy_slot_minutes": (1e-5, 0.0),
+                   "makespan_min": (0.0, 1e-3)}.get(f, (1e-4, 1e-3))
+            d = abs(row[f] - v)
+            ok = d == 0 if exact else d <= bar[1] + bar[0] * abs(v)
+            res_diff[f] = max(res_diff.get(f, 0.0), d)
+            res_ok &= bool(ok)
+    return {
+        "decisions": len(rewards), "wall_s": wall,
+        "obs_exact": hashlib.sha256(np.ascontiguousarray(obs, np.float32).tobytes()).hexdigest()
+        == g["obs_sha256"] and codes == g["obs_codes"],
+        "reward_max_abs": float(np.max(np.abs(rew - want), initial=0.0)) if rew.shape == want.shape else None,
+        "reward_atol": atol,
+        "rewards_ok": bool(rew.shape == want.shape
+                           and np.all(np.abs(rew - want) <= atol + RL_REWARD_RTOL * np.abs(want))),
+        "flags_exact": np.stack(term).astype(int).ravel().tolist() == g["terminated"]
+        and np.stack(trunc).astype(int).ravel().tolist() == g["truncated"],
+        "results_max_abs": res_diff, "results_ok": res_ok,
+    }
+
+
+def phase_rl_parity(torch) -> None:
+    """The trainer's pieces on the card against the port's CPU run, the golden
+    file and the checked-in baseline."""
+    from repro_torch.core.rl import dqn as PD
+
+    golden = json.loads(RL_GOLDEN.read_text())
+    _reset_counts()
+    # the checked-in parameters' params probe
+    probe = json.loads(RL_BASELINE.read_text())["params_probe"]
+    learner = PD.DQNLearner(PD.DQNConfig(state_dim=18))
+    learner.load(str(RL_PARAMS))
+    obs = np.random.default_rng(probe["seed"]).uniform(0.0, 1.0, size=(len(probe["actions"]), 18))
+    probe_actions = [learner.greedy_action(o.astype(np.float32)) for o in obs]
+    tie = torch.tensor([[0.5, 2.0, 2.0, -1.0], [3.0, 3.0, 3.0, 3.0]], device=learner.device)
+    tie_first = tie.argmax(1).tolist() == [1, 0]
+
+    # one TD update at the baseline's width
+    gold = _rl_golden()
+    td = golden["td_update"]
+    check(td["config"] == gold.TD, "the golden file's TD update has other inputs")
+    card_loss, card_params = gold.port_td_update(None)
+    cpu_loss, cpu_params = gold.port_td_update("cpu")
+    td_row = {
+        "loss": card_loss,
+        "card_vs_cpu": max([abs(card_loss - cpu_loss)] + [float(np.abs(a - b).max()) for pa, pb in
+                            zip(card_params, cpu_params) for a, b in zip(pa, pb)]),
+        "card_vs_golden": max(abs(card_loss - td["loss"]), gold.digest_diff(gold.digest(card_params),
+                                                                           td["params"])),
+    }
+
+    # the golden round, the reference's draws replayed
+    g = golden["round"]
+    t0 = time.perf_counter()
+    card = gold.port_round(gold.golden_draws(g, None), g["config"], None)
+    card_s = time.perf_counter() - t0
+    cpu = gold.port_round(gold.golden_draws(g, "cpu"), g["config"], "cpu")
+    ran = ~np.isnan(card["loss"])
+    gloss = np.asarray([np.nan if x is None else x for x in g["loss"]])
+    round_row = {
+        "card_s": card_s, "updates": card["updates"], "size": card["size"],
+        "ints_vs_golden": all(card[k] == g[k] for k in ("pos", "size", "gstep", "updates"))
+        and card["live"].astype(int).ravel().tolist() == g["live"]
+        and card["replay"]["a"].tolist() == g["replay_a"] and card["cfg"].tolist() == g["cfg"]
+        and card["repartitions"].tolist() == g["repartitions"],
+        "ints_vs_cpu": all(card[k] == cpu[k] for k in ("pos", "size", "gstep", "updates"))
+        and all(np.array_equal(card[k], cpu[k]) for k in ("live", "action", "cfg"))
+        and np.array_equal(card["replay"]["a"], cpu["replay"]["a"]),
+        "reward_vs_golden": float(np.abs(card["reward"].ravel() - np.asarray(g["reward"])).max()),
+        "replay_r_vs_golden": float(np.abs(card["replay"]["r"] - np.asarray(g["replay_r"])).max()),
+        "eps_vs_golden": float(np.abs(card["eps"] - np.asarray(g["eps"])).max()),
+        "loss_vs_golden": float(np.abs(card["loss"][ran] - gloss[ran]).max()),
+        "loss_ran_as_golden": bool(np.array_equal(ran, ~np.isnan(gloss))),
+        "params_vs_golden": gold.digest_diff(gold.digest(card["params"]), g["params"]),
+        "params_vs_cpu": max(float(np.abs(a - b).max()) for pa, pb in zip(card["params"], cpu["params"])
+                             for a, b in zip(pa, pb)),
+    }
+    env_row = _rl_env_day(torch, golden["env"])
+    counts = _counts()
+    emit("rl_parity", probe_actions=probe_actions, probe_ok=probe_actions == probe["actions"],
+         argmax_first_of_ties=tie_first, td_update=td_row, round=round_row, env=env_row,
+         bars={"td": RL_TD_TOL, "round_floats": RL_FLOAT_TOL, "env_reward_rtol": RL_REWARD_RTOL},
+         model_kernel_launches=counts)
+    check(probe_actions == probe["actions"], f"params probe {probe_actions} != {probe['actions']}")
+    check(tie_first, "argmax on the card does not take the first of tied maxima")
+    check(td_row["card_vs_cpu"] <= RL_TD_TOL and td_row["card_vs_golden"] <= RL_TD_TOL,
+          f"TD update on the card: {td_row}")
+    check(round_row["ints_vs_golden"] and round_row["ints_vs_cpu"] and round_row["loss_ran_as_golden"],
+          f"the round's integers on the card: {round_row}")
+    check(max(round_row[k] for k in ("reward_vs_golden", "replay_r_vs_golden", "eps_vs_golden")) <= RL_FLOAT_TOL
+          and max(round_row[k] for k in ("loss_vs_golden", "params_vs_golden", "params_vs_cpu")) <= RL_TD_TOL,
+          f"the round's floats on the card: {round_row}")
+    check(env_row["obs_exact"] and env_row["rewards_ok"] and env_row["flags_exact"] and env_row["results_ok"],
+          f"BatchedRepartitionEnv on the card disagrees with the golden file: {env_row}")
+    check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
+
+
+def phase_rl_train(torch) -> None:
+    """``train_dqn_batched`` at the baseline's configuration for RL_ROUNDS rounds on
+    the card; a profile of RL_PROFILED decisions of the second round, rebuilt."""
+    import repro_torch.core.batched as P
+    from repro_torch.core.batched import backend as PB
+    from repro_torch.core.rl import batched_train as PT
+    from repro_torch.core.rl.env import RewardWeights
+    from repro_torch.launch import train_rl
+
+    cfg, tcfg = train_rl.dqn_config(), train_rl.train_config()
+    B = tcfg.batch
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    learner, stats = PT.train_dqn_batched(num_episodes=RL_ROUNDS * B, dqn_config=cfg, train_config=tcfg,
+                                          seed=train_rl.TRAIN_SEED)
+    call_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _counts()
+
+    # the second round's inputs as the trainer made them (padded to the
+    # largest episode of both rounds)
+    tables = P.build_tables()
+    dev = learner.device
+    round_jobs, round_inv = PT._round_inputs(tcfg, RL_ROUNDS, train_rl.TRAIN_SEED, tables)
+    jobs, inv = round_jobs[-1], round_inv[-1]
+    consts = PB.device_constants(tables, tcfg.repartition_mode, dev)
+    arrays = PT._batch_arrays(jobs, inv, dev)
+    short = dataclasses.replace(tcfg, horizon_decisions=RL_PROFILED)
+    round_fn = PT._make_round_fn(cfg, short, RewardWeights(), tables, consts, device=dev)
+    # a full replay, so every profiled decision runs its TD update, as every
+    # decision of the second round does
+    replay = PT.new_replay(tcfg.replay_capacity, cfg.state_dim, dev)._replace(size=tcfg.replay_capacity)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    init_idx = np.full((B,), tables.index_of(tcfg.initial_config), np.int32)
+    env0 = PB.init_state(jobs, init_idx, dev)  # the round reads it and writes nothing to it
+
+    def decisions():
+        return round_fn(env0, learner.params, learner.target, learner.opt_state, replay,
+                        stats.env_steps, stats.updates, gen, *arrays)
+
+    decisions()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = decisions()
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(torch, decisions, top=10, host_ops=False)
+    busy = prof["device_busy_ms"] or 0.0
+    # the host's time a decision in the trainer: the second round's wall over
+    # its decisions
+    host_ms = stats.round_wall_seconds[-1] * 1e3 / tcfg.horizon_decisions
+
+    losses = np.asarray(stats.losses)
+    row = {
+        "config": {"batch": B, "horizon": tcfg.horizon_decisions, "n_step": cfg.n_step,
+                   "scenarios": list(tcfg.scenarios), "load_scale_range": list(tcfg.load_scale_range),
+                   "replay_capacity": tcfg.replay_capacity, "min_buffer": cfg.min_buffer},
+        "episodes": stats.episodes, "rounds": stats.rounds, "call_s": call_s,
+        "train_wall_s": stats.wall_seconds, "round_wall_s": stats.round_wall_seconds,
+        "round_env_steps": stats.round_env_steps, "env_steps": stats.env_steps,
+        "env_steps_per_s": stats.env_steps_per_sec,
+        "round_env_steps_per_s": [n / w for n, w in zip(stats.round_env_steps, stats.round_wall_seconds)],
+        "updates": stats.updates, "final_epsilon": stats.final_epsilon,
+        "losses": len(losses), "finite_losses": int(np.isfinite(losses).sum()),
+        "truncated_episodes": stats.truncated_episodes, "peak_gb": peak_gb,
+        "mean_episode_reward": float(np.mean(stats.episode_rewards)),
+        "host_ms_per_decision": host_ms,
+        "profiled_decisions": RL_PROFILED, "profiled_updates": out[6] - stats.updates,
+        "profiled_round_ms_per_decision": short_ms / RL_PROFILED,
+        "launches_per_decision": prof["launches"] / RL_PROFILED,
+        "device_busy_ms_per_decision": busy / RL_PROFILED,
+        # busy time and wall of the same decisions (the wall unprofiled)
+        "device_idle_share": 1 - busy / short_ms if busy else None,
+        "profile": prof,
+        "model_kernel_launches": counts,
+    }
+    emit("rl_train", **row)
+    check(stats.episodes == RL_ROUNDS * B and stats.updates > 0, f"rl_train: {stats.updates} updates")
+    check(len(losses) > 0 and row["finite_losses"] == len(losses), "rl_train: non-finite losses")
+    check(bool(np.isfinite(stats.episode_rewards).all()), "rl_train: non-finite episode rewards")
+    check(all(np.isfinite(t.cpu().numpy()).all() for wb in learner.params for t in wb),
+          "rl_train: non-finite parameters")
+    check(row["profiled_updates"] == RL_PROFILED, "rl_train: the profiled decisions did not all train")
+    check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ layout and names so each counterpart is easy to find, imports ``torch`` and
 never ``jax`` or ``repro``, and runs its entry points on ``cuda`` unless the
 caller passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`).
 
-Ported so far: the serving path of the dense gemma3-1b config
-(:mod:`repro_torch.models`, :mod:`repro_torch.launch.serve`) and its one
-kernel, flash attention, as a hand-written CUDA kernel
-(:mod:`repro_torch.kernels.flash_attention`).
+Ported so far: the serving paths of gemma3-1b, jamba-v0.1-52b, xlstm-350m
+and granite-moe-3b-a800m (:mod:`repro_torch.models`,
+:mod:`repro_torch.launch.serve`) with their four kernels written in CUDA
+(:mod:`repro_torch.kernels`); the batched MIG simulator
+(:mod:`repro_torch.core.batched`); and the on-device DQN repartitioning
+trainer (:mod:`repro_torch.core.rl`, :mod:`repro_torch.optim`,
+:mod:`repro_torch.launch.train_rl`).
 """

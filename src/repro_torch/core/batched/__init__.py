@@ -12,9 +12,9 @@ Public surface:
 * :func:`compile_policy` / :class:`BatchedPolicy` — policies compiled to
   per-rollout target arrays (static/nomig/daynight), :func:`held_policy`;
 * :func:`simulate_batch` — run a batch to completion (on the CUDA card
-  unless ``device="cpu"``).
-
-The vectorized RL environment (``BatchedRepartitionEnv``) is not ported yet.
+  unless ``device="cpu"``);
+* :class:`BatchedRepartitionEnv` — the vectorized repartitioning env over
+  the same step.
 """
 
 from repro_torch.core.batched.backend import (
@@ -23,6 +23,7 @@ from repro_torch.core.batched.backend import (
     RolloutState,
     simulate_batch,
 )
+from repro_torch.core.batched.env import BatchedRepartitionEnv
 from repro_torch.core.batched.policies import (
     BatchedPolicy,
     UnsupportedPolicyError,
@@ -38,6 +39,7 @@ __all__ = [
     "PAD_MULTIPLE",
     "BatchedJobs",
     "BatchedPolicy",
+    "BatchedRepartitionEnv",
     "BatchedResult",
     "DeviceTables",
     "RolloutState",

@@ -4,6 +4,10 @@ The mapping is one to one: the same key paths, the leading stacked-repeat
 axis kept, the same dtypes. The JAX tree arrives as numpy arrays (the port
 imports nothing of JAX); bf16 arrives as numpy's ``bfloat16`` extension dtype
 and is carried over bit for bit.
+
+The DQN's MLP crosses as a list of numpy ``(w, b)`` pairs:
+:func:`mlp_params_from_numpy` and :func:`mlp_params_to_numpy`, defined with
+the network in :mod:`repro_torch.core.rl.dqn`, are re-exported here.
 """
 
 from __future__ import annotations
@@ -13,12 +17,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.rl.dqn import mlp_params_from_numpy, mlp_params_to_numpy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Params
 from repro_torch.models.transformer import abstract_params
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["mlp_params_from_numpy", "mlp_params_to_numpy", "params_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: Any) -> torch.Tensor:

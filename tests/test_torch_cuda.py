@@ -5,6 +5,8 @@ card; this file imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -810,3 +812,66 @@ def test_simulate_batch_repeats_bitwise_on_the_card(card):
     for f in ("repartitions", "preemptions", "num_jobs"):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
     assert np.array_equal(np.isfinite(a.completion), np.isfinite(b.completion))
+
+
+# ------------------------- the on-device DQN trainer -----------------------
+# repro_torch.core.rl on the card against the port's CPU run of the same
+# inputs: the TD update within DESIGN.md §11's 1e-5, the round of
+# tests/data/torch_rl_golden.json (the reference's draws replayed) with every
+# integer exact, and the checked-in baseline's params probe.
+
+BASELINES = Path(__file__).resolve().parents[1] / "benchmarks" / "baselines"
+
+
+def test_rl_round_on_the_card_matches_the_cpu_and_the_golden_file(card):
+    import json
+
+    from torch_rl_golden import GOLDEN, golden_draws, port_round
+
+    g = json.loads(GOLDEN.read_text())["round"]
+    got = port_round(golden_draws(g, "cuda"), g["config"], "cuda")
+    cpu = port_round(golden_draws(g, "cpu"), g["config"], "cpu")
+    for k in ("pos", "size", "gstep", "updates"):
+        assert got[k] == cpu[k] == g[k], k
+    for k in ("live", "action", "cfg"):
+        assert np.array_equal(got[k], cpu[k]), k
+    assert np.array_equal(got["replay"]["a"], cpu["replay"]["a"])
+    assert got["live"].astype(int).ravel().tolist() == g["live"]
+    assert got["replay"]["a"].tolist() == g["replay_a"] and got["cfg"].tolist() == g["cfg"]
+    assert np.abs(got["reward"].ravel() - np.asarray(g["reward"])).max() <= 1e-6
+    assert np.abs(got["replay"]["r"] - np.asarray(g["replay_r"])).max() <= 1e-6
+    ran = ~np.isnan(cpu["loss"])
+    assert np.abs(got["loss"][ran] - cpu["loss"][ran]).max() <= 1e-5
+    for (cw, cb), (pw, pb) in zip(got["params"], cpu["params"]):
+        assert np.abs(cw - pw).max() <= 1e-5 and np.abs(cb - pb).max() <= 1e-5
+
+
+def test_rl_td_update_on_the_card_matches_the_cpu(card):
+    from torch_rl_golden import port_td_update
+
+    (card_loss, card_params), (cpu_loss, cpu_params) = port_td_update("cuda"), port_td_update("cpu")
+    assert abs(card_loss - cpu_loss) <= 1e-5
+    for (cw, cb), (pw, pb) in zip(card_params, cpu_params):
+        assert np.abs(cw - pw).max() <= 1e-5 and np.abs(cb - pb).max() <= 1e-5
+
+
+def test_rl_params_probe_on_the_card(card):
+    import json
+
+    from repro_torch.core.rl import dqn as PD
+
+    probe = json.loads((BASELINES / "rl_batched.json").read_text())["params_probe"]
+    learner = PD.DQNLearner(PD.DQNConfig(state_dim=18))  # device=None: the card
+    learner.load(str(BASELINES / "rl_dqn_params.npz"))
+    assert learner.device.type == "cuda"
+    obs = np.random.default_rng(probe["seed"]).uniform(0.0, 1.0, size=(len(probe["actions"]), 18))
+    assert [learner.greedy_action(o.astype(np.float32)) for o in obs] == probe["actions"]
+
+
+def test_rl_argmax_on_the_card_takes_the_first_of_tied_maxima(card):
+    q = torch.tensor([[0.5, 2.0, 2.0, -1.0], [3.0, 3.0, 3.0, 3.0], [0.0, 1.0, 0.0, 1.0]],
+                     device="cuda")
+    assert q.argmax(1).tolist() == [1, 0, 1]
+    wide = torch.zeros((64, 12), device="cuda")
+    wide[:, 5] = wide[:, 9] = 1.0
+    assert (wide.argmax(1) == 5).all()

@@ -1,4 +1,7 @@
-"""The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine)."""
+"""The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine).
+
+Nor does ``tests/torch_rl_golden.py``, which ``chip_smoke.py`` imports on a
+machine without JAX."""
 
 import ast
 from pathlib import Path
@@ -6,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py"]
 BANNED = ("jax", "repro")
 
 
@@ -41,6 +45,10 @@ def test_port_files_exist():
     listed = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {f"src/repro_torch/core/{m}.py" for m in
             ("slices", "scenarios", "batched/backend", "batched/tables")} <= listed
+    assert {f"src/repro_torch/{m}.py" for m in
+            ("core/rl/__init__", "core/rl/env", "core/rl/dqn", "core/rl/batched_train",
+             "core/batched/env", "optim/__init__", "optim/adamw", "optim/schedule",
+             "launch/train_rl")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
