@@ -139,6 +139,33 @@ four):
               the launches and device busy time per decision, and the idle
               share against the same decisions' unprofiled wall.
 
+Then the evaluation path (``repro_torch.launch.evaluate``): the event-driven
+simulator, the four schedulers, the policy registry and the forecast
+controller (float64 host code), with the greedy DQN's Q network on the card
+(no kernel of the four):
+
+27. eval_replay — every cell of the four checked-in sweep baselines
+              (benchmarks/baselines/{smoke_sweep, scenario_matrix,
+              repartition_policies, repartition_modes}.jsonl, 464 rows)
+              through the port's ``run_cell``; per file the rows, the rows
+              within rtol 1e-9 (the integers, ``config_trace`` and
+              ``util_histogram`` exact), the largest relative difference and
+              the seconds; the forecaster's fitted coefficients against the
+              reference's (tests/data/torch_eval_forecast_golden.json). Any
+              row off fails.
+28. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
+              port's learner on the card and raced against the forecast
+              controller on the six families at scale 0.1, as
+              scripts/train_rl_baseline.py's check does: each row and
+              ``families_beaten`` against rl_batched.json, the decisions, the
+              wall time, every decision whose action differs from the port's
+              CPU run with its Q gap, and over one profiled day the Q
+              network's launches and device time per decision.
+29. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
+              NoMIG, static config 3, DayNight, the queue heuristic and the
+              checked-in npz as the registry's ``"dqn"`` (event cadence): ET
+              and the improvement over NoMIG per model, measured, not gated.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -149,6 +176,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -337,6 +365,15 @@ RL_REWARD_RTOL = 1e-6
 RL_ROUNDS = 2  # rl_train: rounds of 64 episodes at the baseline's width
 RL_PROFILED = 4  # decisions of rl_train's profile
 
+# the evaluation path: the checked-in sweep rows it replays, at the reference's
+# baseline tolerance (python -m repro.sweep --check-baseline's --rtol)
+EVAL_FILES = [ROOT / "benchmarks" / "baselines" / f"{name}.jsonl" for name in
+              ("smoke_sweep", "scenario_matrix", "repartition_policies", "repartition_modes")]
+EVAL_RTOL = 1e-9
+EVAL_FORECAST_GOLDEN = ROOT / "tests" / "data" / "torch_eval_forecast_golden.json"
+EVAL_RACE_SCALE = 0.1  # rl_batched.json's scale
+EVAL_TABLE3_SCALE = 1.0
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -387,6 +424,9 @@ def main() -> int:
     phase_sim_throughput(torch)
     phase_rl_parity(torch)
     phase_rl_train(torch)
+    phase_eval_replay(torch)
+    phase_eval_race(torch)
+    phase_eval_table3(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -2249,6 +2289,95 @@ def phase_rl_train(torch) -> None:
           "rl_train: non-finite parameters")
     check(row["profiled_updates"] == RL_PROFILED, "rl_train: the profiled decisions did not all train")
     check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
+
+
+def phase_eval_replay(torch) -> None:
+    """Every checked-in sweep row through the port's ``run_cell``, compared."""
+    from repro_torch.launch import evaluate as PE
+
+    from repro_torch.forecast import fit_scenario_forecaster
+
+    _reset_counts()
+    files = [PE.replay(str(path), EVAL_RTOL) for path in EVAL_FILES]
+    counts = _counts()
+    # the forecaster's least-squares fit (LAPACK) against the reference's
+    # coefficients, written by the reference: the first suspect if a forecast
+    # row moves on this machine
+    golden = json.loads(EVAL_FORECAST_GOLDEN.read_text())
+    fit_diff = {}
+    for family, want in golden.items():
+        m = fit_scenario_forecaster(family)
+        fit_diff[family] = max(abs(a - b) for a, b in zip([m.mean, *m.cos_coeffs, *m.sin_coeffs], want))
+    emit("eval_replay", files=files, rows=sum(f["rows"] for f in files),
+         within_rtol=sum(f["within_rtol"] for f in files), seconds=sum(f["seconds"] for f in files),
+         forecast_fit_max_diff=fit_diff, model_kernel_launches=counts)
+    for f in files:
+        check(f["within_rtol"] == f["rows"], f"eval_replay: {f['file']}: rows off {f['off'][:8]}")
+    check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
+
+
+def phase_eval_race(torch) -> None:
+    """The checked-in policy, its Q network on the card, against the forecast
+    controller on the six families; each row against rl_batched.json."""
+    from repro_torch.core.rl.agent import greedy_policy
+    from repro_torch.core.rl.train import evaluate_policy
+    from repro_torch.launch import evaluate as PE
+
+    want = json.loads(RL_BASELINE.read_text())
+    learner = PE.load_learner(str(RL_PARAMS))  # device=None: the card
+    log = PE.DecisionLog(learner)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows, _ = PE.race(log, EVAL_RACE_SCALE)
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    beaten = [r["scenario"] for r in rows if r["dqn_beats_forecast"]]
+    keys = ("ET_DQN", "ET_Forecast", "repartitions_DQN", "energy_wh_DQN", "dqn_beats_forecast",
+            "iterations")
+    off = [{"scenario": g["scenario"], **{k: [g[k], w[k]] for k in keys if g[k] != w[k]}}
+           for g, w in zip(rows, want["rows"]) if any(g[k] != w[k] for k in keys)]
+    flips = PE.action_flips(log, PE.load_learner(str(RL_PARAMS), "cpu"))
+
+    # the Q network's cost: one paper-diurnal day of the race under the profiler
+    day = PE.DecisionLog(learner)
+    prof = _profile(torch, lambda: evaluate_policy(
+        lambda: greedy_policy(day, decision_interval_min=15.0), num_iterations=1,
+        seed=PE.EVAL_SEED, scenario="paper-diurnal"), top=6)
+    n_day = len(day.records)
+    emit("eval_race", rows=rows, families_beaten=beaten, want_families_beaten=want["families_beaten"],
+         rows_off=off, decisions=len(log.records), wall_s=wall_s, flips=flips,
+         q_network={"day_decisions": n_day, "day_wall_ms": prof["wall_ms"],
+                    "launches_per_decision": prof["launches"] / n_day,
+                    "device_busy_ms_per_decision": (prof["device_busy_ms"] or 0.0) / n_day,
+                    "device_idle_share": prof["device_idle_share"], "top": prof["top"]},
+         params_probe=PE.params_probe(learner) == want["params_probe"],
+         model_kernel_launches=counts)
+    check(PE.params_probe(learner) == want["params_probe"], "eval_race: params probe")
+    check(not off and beaten == want["families_beaten"],
+          f"eval_race: rows off rl_batched.json {off}, beaten {beaten}; flips {flips[:8]}")
+    check(all(math.isfinite(r["et_a"]) for r in rows), "eval_race: non-finite ET scale")
+    check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
+
+
+def phase_eval_table3(torch) -> None:
+    """Table III with the checked-in npz as the DQN row (measured, not gated)."""
+    from repro_torch.launch import evaluate as PE
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = PE.table3(EVAL_TABLE3_SCALE, str(RL_PARAMS))
+    wall_s = time.perf_counter() - t0
+    counts = _counts()
+    emit("eval_table3", scale=EVAL_TABLE3_SCALE, days_per_model=PE.iters(10, EVAL_TABLE3_SCALE, 2),
+         rows=rows, wall_s=wall_s,
+         dqn_row_is="rl_batched.json's policy on WorkloadSpec days at the event cadence, "
+                    "not the paper's trained agent",
+         model_kernel_launches=counts)
+    check([r["model"] for r in rows] == ["NoMIG", "StaticMIG", "DayNightMIG", "DynamicMIG-heuristic",
+                                         "DynamicMIG-DQN"], "eval_table3: models")
+    check(all(math.isfinite(v) for r in rows for k, v in r.items() if k != "model"),
+          "eval_table3: non-finite row")
+    check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ nothing of ``repro``):
 * :mod:`repro_torch.core.jobs`      — jobs with linear/capped/sublinear elasticity
 * :mod:`repro_torch.core.workload`  — §V-A diurnal Poisson workload generator
 * :mod:`repro_torch.core.scenarios` — named workload scenario registry
-* :mod:`repro_torch.core.metrics`   — the per-run result record
-* :mod:`repro_torch.core.simulator` — constants and the closed-form policies
+* :mod:`repro_torch.core.metrics`   — the per-run result record and the ET metric
+* :mod:`repro_torch.core.engine`    — the event loop (the bit-exact oracle)
+* :mod:`repro_torch.core.simulator` — ``MIGSimulator`` and the repartitioning policies
+* :mod:`repro_torch.core.schedulers` — EDF-FS, EDF-SS, LLF and LALF
 
 and the batched simulator on the device, :mod:`repro_torch.core.batched`.
 """

@@ -9,10 +9,10 @@ work-deplete rate on a slice of ``k`` slots is its elasticity's throughput
 * sublinear:  one of four normalized concave curves (two exponential-
               saturating, two logarithmic), tp(1) = 1.
 
-The port's own copy of ``repro.core.jobs`` with what the batched simulator
-reads: the job record, its kinds, the curves and ``rate_on``.  The laxity
-helpers of the event-driven schedulers, the serving metadata and the label
-codec of the service's checkpoints are not copied.
+The port's own copy of ``repro.core.jobs``: the job record with its
+scheduling state, serving metadata and the laxity helpers the event-driven
+schedulers read, its kinds and the curves.  The label codec of the service's
+checkpoints (``elasticity_from_label`` and pickling by label) is not copied.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import dataclasses
 import enum
 import math
 from typing import Callable, Dict, Optional
+
+from repro_torch.core.slices import ALL_SLICE_SIZES, Partition
 
 __all__ = [
     "JobKind",
@@ -98,10 +100,10 @@ SUBLINEAR_CURVES: Dict[str, Elasticity] = {
 
 @dataclasses.dataclass
 class Job:
-    """A single AI/ML job.
+    """A single AI/ML job with mutable scheduling state.
 
-    ``work`` is in 1g-slice minutes; ``remaining`` starts equal to it (the
-    batched simulator takes only fresh jobs and keeps depletion itself).
+    ``work`` is in 1g-slice minutes.  ``remaining`` depletes at rate
+    ``elasticity.throughput(slice_slots)`` while running.
     """
 
     job_id: int
@@ -111,15 +113,86 @@ class Job:
     deadline: float  # absolute minutes
     elasticity: Elasticity
     speedup_no_mig: float = 1.0  # NoMIG benchmark: 1.06 for linear jobs
+
+    # --- serving metadata (multi-tenant SLO workloads; DESIGN.md §9) ----
+    # Batch jobs leave both None.  A serving request carries its tenant id
+    # and a latency SLO in minutes; the generator also sets
+    # ``deadline = arrival + slo_min`` so EDF-family schedulers order
+    # requests by SLO urgency without modification.
+    tenant: Optional[str] = None
+    slo_min: Optional[float] = None
+
+    # --- mutable scheduling state -------------------------------------
     remaining: float = dataclasses.field(default=-1.0)
+    completion: Optional[float] = None
+    preemptions: int = 0
+    critical_events: int = 0  # LLF/LALF critical-laxity triggers used
+    last_slice: Optional[int] = None  # slice index job last ran on
 
     def __post_init__(self) -> None:
         if self.remaining < 0.0:
             self.remaining = self.work
 
+    # --- durations ------------------------------------------------------
     def rate_on(self, slots: float, mig_enabled: bool = True) -> float:
         """Work-deplete rate on a slice of given compute size."""
         r = self.elasticity.throughput(slots)
         if not mig_enabled:
             r *= self.speedup_no_mig
         return r
+
+    def duration_on(self, slots: float, mig_enabled: bool = True) -> float:
+        r = self.rate_on(slots, mig_enabled)
+        return math.inf if r <= 0 else self.remaining / r
+
+    def finish_time_on(self, t: float, slots: float, mig_enabled: bool = True) -> float:
+        return t + self.duration_on(slots, mig_enabled)
+
+    def meets_deadline_on(self, t: float, slots: float, mig_enabled: bool = True) -> bool:
+        return self.finish_time_on(t, slots, mig_enabled) <= self.deadline + 1e-9
+
+    def laxity_fastest(self, t: float, part: Partition, mig_enabled: bool = True) -> float:
+        """Laxity vs the fastest slice of the partition (LLF, paper §IV-C)."""
+        fastest = part.slices[part.fastest_slice_index()].slots
+        return (self.deadline - t) - self.duration_on(fastest, mig_enabled)
+
+    def laxity_average(self, t: float, part: Partition, mig_enabled: bool = True) -> float:
+        """Laxity vs mean duration across the partition's slices (LALF)."""
+        durs = [self.duration_on(s.slots, mig_enabled) for s in part.slices]
+        return (self.deadline - t) - (sum(durs) / len(durs))
+
+    @property
+    def done(self) -> bool:
+        return self.remaining <= 1e-9
+
+    def tardiness(self) -> float:
+        if self.completion is None:
+            return 0.0
+        return max(self.completion - self.deadline, 0.0)
+
+    def latency(self) -> float:
+        """Arrival-to-completion latency in minutes (0 while incomplete)."""
+        if self.completion is None:
+            return 0.0
+        return max(self.completion - self.arrival, 0.0)
+
+    def slo_attained(self) -> bool:
+        """Whether a completed request met its latency SLO.
+
+        Jobs without an SLO trivially attain it; incomplete jobs do not.
+        """
+        if self.completion is None:
+            return False
+        if self.slo_min is None:
+            return True
+        return self.latency() <= self.slo_min + 1e-9
+
+    def mean_duration_all_sizes(self) -> float:
+        """Average remaining duration over the canonical slice sizes.
+
+        Used by the DQN state representation ("average duration of the first
+        m jobs", paper §IV-D-1) — averaged over slice sizes so it is
+        configuration-independent.
+        """
+        durs = [self.duration_on(k) for k in ALL_SLICE_SIZES]
+        return sum(durs) / len(durs)

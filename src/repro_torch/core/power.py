@@ -5,7 +5,8 @@ busy slots 0..7 with linear interpolation.  Energy is in watt-hours; the
 simulator's time unit is minutes.
 
 The port's own copy of ``repro.core.power`` with the one model the batched
-simulator reads; the A30 and TPU-pod curves belong to the fleet layer.
+simulator and the event-driven simulator read; the A30 and TPU-pod curves
+belong to the fleet layer.
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ class PowerModel:
         frac = u - lo
         w = self.watts_by_busy_slots
         return w[lo] * (1.0 - frac) + w[hi] * frac
+
+    def energy_wh(self, busy_slots: float, minutes: float) -> float:
+        """Energy in watt-hours for an interval at constant utilization."""
+        return self.power_watts(busy_slots) * minutes / 60.0
+
+    @property
+    def idle_watts(self) -> float:
+        return self.watts_by_busy_slots[0]
+
+    @property
+    def peak_watts(self) -> float:
+        return self.watts_by_busy_slots[-1]
 
 
 # Fig. 3 (A100-40GB, 250 W cap): steep marginal power up to 4 busy slots, then

@@ -1,19 +1,24 @@
-"""Reinforcement-learning repartitioning (paper §IV-D) in torch: the DQN and its on-device trainer.
+"""Reinforcement-learning repartitioning (paper §IV-D) in torch: the DQN, its on-device trainer and its evaluator.
 
-The port of ``repro.core.rl`` as far as the batched trainer needs it:
+The port of ``repro.core.rl``:
 
-* :mod:`repro_torch.core.rl.env` — the §IV-D feature layout, bin tables and
-  :class:`RewardWeights` (host constants);
+* :mod:`repro_torch.core.rl.env` — the §IV-D feature layout, bin tables,
+  :class:`RewardWeights`, :func:`state_features` and the incremental
+  :class:`RepartitionEnv` over the event-driven engine;
 * :mod:`repro_torch.core.rl.dqn` — the Q-network, the shared double-DQN TD
   update on the port's AdamW, :class:`DQNLearner` (the reference's npz);
+* :mod:`repro_torch.core.rl.agent` — :class:`DQNAgent`, the n-step
+  accumulator and :func:`greedy_policy`, the evaluation-mode policy;
 * :mod:`repro_torch.core.rl.batched_train` — :func:`train_dqn_batched`, B
-  rollouts and the learner advancing together on one device.
+  rollouts and the learner advancing together on one device;
+* :mod:`repro_torch.core.rl.train` — :func:`evaluate_policy`, day
+  simulations under a policy on the event-driven simulator.
 
-The event-engine env (``RepartitionEnv``), the host training loop, the agent
-and the evaluation path (``greedy_policy``, ``evaluate_policy``) sit on the
-reference's event-driven oracle and are not ported.
+The host training loop (``train_dqn``) and ``evaluate_policy_fleet`` are not
+ported yet.
 """
 
+from repro_torch.core.rl.agent import DQNAgent, NStepAccumulator, greedy_policy
 from repro_torch.core.rl.batched_train import (
     BatchedTrainConfig,
     BatchedTrainStats,
@@ -21,7 +26,14 @@ from repro_torch.core.rl.batched_train import (
     train_dqn_batched,
 )
 from repro_torch.core.rl.dqn import DQNConfig, DQNLearner, ReplayBuffer, epsilon_by_step
-from repro_torch.core.rl.env import FEATURE_DIM, M_JOBS, RewardWeights
+from repro_torch.core.rl.env import (
+    FEATURE_DIM,
+    M_JOBS,
+    RepartitionEnv,
+    RewardWeights,
+    state_features,
+)
+from repro_torch.core.rl.train import evaluate_policy
 
 __all__ = [
     "DQNConfig",
@@ -31,8 +43,14 @@ __all__ = [
     "FEATURE_DIM",
     "M_JOBS",
     "RewardWeights",
+    "RepartitionEnv",
+    "state_features",
+    "DQNAgent",
+    "NStepAccumulator",
+    "greedy_policy",
     "BatchedTrainConfig",
     "BatchedTrainStats",
     "device_observations",
     "train_dqn_batched",
+    "evaluate_policy",
 ]

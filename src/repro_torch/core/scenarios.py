@@ -2,6 +2,8 @@
 
 * ``paper-diurnal``         — the §V-A non-homogeneous Poisson workload; at
   ``load_scale=1.0`` it is ``generate_jobs(WorkloadSpec(), seed)``;
+* ``trace-scaled``          — the diurnal trace with its rate multiplied by
+  ``load_scale``;
 * ``bursty-mmpp``           — a two-state Markov-modulated Poisson process on
   top of the diurnal envelope;
 * ``heavy-tail-lognormal``  — diurnal arrivals with lognormal durations;
@@ -11,9 +13,9 @@
 
 Every generator is a pure function of ``(seed, **kwargs)``, a seeded numpy
 stream drawn in the reference's order.  The port's own copy of
-``repro.core.scenarios`` with the five scenarios the batched simulator's
-tests and the RL training set use; ``trace-scaled`` and the multi-tenant
-serving scenario are not copied.
+``repro.core.scenarios`` with the six batch scenarios (the six families of
+the evaluation grids); the multi-tenant serving scenario needs the serving
+layer and is not copied.
 """
 
 from __future__ import annotations
@@ -125,6 +127,16 @@ def _diurnal_jobs(
 def _paper_diurnal(seed: int, load_scale: float, horizon_min: float) -> List[Job]:
     if load_scale == 1.0:
         return generate_jobs(WorkloadSpec(horizon_min=horizon_min), seed)
+    return _diurnal_jobs(seed, load_scale, horizon_min)
+
+
+@register_scenario(
+    "trace-scaled",
+    "diurnal trace with the arrival rate multiplied by load_scale",
+    load_scale=2.0,
+    horizon_min=float(MINUTES_PER_DAY),
+)
+def _trace_scaled(seed: int, load_scale: float, horizon_min: float) -> List[Job]:
     return _diurnal_jobs(seed, load_scale, horizon_min)
 
 

@@ -144,5 +144,15 @@ def moe_apply(
     copy_w = top_w.reshape(-1)[order] * keep.float()  # (T*k,)
     copy_out = ys[torch.clamp(slot, max=E * capacity - 1)]
     copy_out = copy_out * copy_w[:, None].to(copy_out.dtype)
-    out = torch.zeros((T, d), dtype=copy_out.dtype, device=dev).index_add_(0, src_token, copy_out)
+    # The reference's ``.at[src_token].add`` adds a token's k copies one at a
+    # time in sorted order, rounding after each add. ``index_add_`` adds with
+    # atomics on CUDA, in an order that changes from run to run, so each
+    # token's copies are gathered in sorted order (the inverse of ``order``)
+    # and added in turn: the same bits on every run and device.
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=dev)
+    copies = copy_out[torch.sort(inv.reshape(T, k), dim=1).values]  # (T, k, d)
+    out = torch.zeros((T, d), dtype=copy_out.dtype, device=dev)
+    for i in range(k):
+        out = out + copies[:, i]
     return out.reshape(B, S, d).to(x.dtype), aux

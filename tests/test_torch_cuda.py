@@ -875,3 +875,78 @@ def test_rl_argmax_on_the_card_takes_the_first_of_tied_maxima(card):
     wide = torch.zeros((64, 12), device="cuda")
     wide[:, 5] = wide[:, 9] = 1.0
     assert (wide.argmax(1) == 5).all()
+
+
+# ------------------------------ the MoE combine ------------------------------
+# granite-moe-3b-a800m's MoE layer at full width in bf16, twice on one input:
+# the combine sums each token's 8 expert copies, each rounded to bf16, so an
+# order that changed from run to run would show in the bits
+
+
+def test_moe_layer_gives_the_same_bits_twice(card):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply, moe_init
+
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = moe_init(gen, cfg, torch.bfloat16, card)
+    x = torch.randn((2, 2048, cfg.d_model), generator=gen, device=card).to(torch.bfloat16)
+    with torch.inference_mode():
+        a, aux_a = moe_apply(p, cfg, x)
+        b, aux_b = moe_apply(p, cfg, x)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(aux_a, aux_b)
+
+
+# ------------------------------ the evaluator -------------------------------
+# repro_torch.launch.evaluate with the greedy Q network on the card against
+# the port's CPU run and the checked-in race (benchmarks/baselines/rl_batched.json)
+
+
+def test_eval_greedy_actions_on_the_card_equal_the_cpus(card):
+    import json
+
+    from repro_torch.core.rl.agent import greedy_policy
+    from repro_torch.core.rl.train import evaluate_policy
+    from repro_torch.launch import evaluate as PE
+
+    params = str(BASELINES / "rl_dqn_params.npz")
+    probe = json.loads((BASELINES / "rl_batched.json").read_text())["params_probe"]
+    learner = PE.load_learner(params)  # device=None: the card
+    assert learner.device.type == "cuda"
+    assert PE.params_probe(learner) == probe
+    log = PE.DecisionLog(learner)
+    evaluate_policy(lambda: greedy_policy(log, decision_interval_min=15.0), num_iterations=1,
+                    seed=PE.EVAL_SEED, scenario="paper-diurnal")
+    assert len(log.records) >= 96
+    assert PE.action_flips(log, PE.load_learner(params, "cpu")) == []
+
+
+def test_eval_race_row_on_the_card_equals_the_checked_in_one(card):
+    import json
+
+    from repro_torch.launch import evaluate as PE
+
+    want = json.loads((BASELINES / "rl_batched.json").read_text())["rows"][0]
+    rows, _ = PE.race(PE.load_learner(str(BASELINES / "rl_dqn_params.npz")), 0.1,
+                      families=(want["scenario"],))
+    assert rows[0] == {**want, "et_a": rows[0]["et_a"]}
+    assert abs(rows[0]["et_a"] - want["et_a"]) <= 1e-9 * abs(want["et_a"])
+
+
+def test_eval_entry_points_raise_when_no_card_is_present(card, monkeypatch):
+    from repro_torch.core.rl.train import evaluate_policy
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.cells import make_cell, run_cell
+
+    cell = make_cell(experiment="x", group="x", scheduler="EDF-SS", seed=0,
+                     scenario="weekend-flat", policy="static")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: evaluate_policy("static", num_iterations=1),
+                 lambda: run_cell(cell),
+                 lambda: PE.main(["--table3", "--scale", "0.1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

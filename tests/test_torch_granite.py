@@ -287,6 +287,22 @@ def test_moe_apply_matches_jax(name, dtype, tokens, moe_kw):
     np.testing.assert_allclose(float(aux), float(jaux), rtol=LAYER_TOL)
 
 
+def test_moe_bf16_combine_adds_in_the_references_order():
+    """One decode step (4 tokens, 8 copies each, C = 1): the expert products
+    round alike in both packages here, so the combine is all that is left.
+    The reference adds a token's copies one by one in sorted order, rounding
+    to bf16 after each add; so does the port (a sum kept in fp32 and rounded
+    once, as ``index_add_`` on the CPU does, differs in the last bits)."""
+    name, dtype, tokens, moe_kw = MOE_CASES[-1]
+    assert (name, dtype) == ("decode_c1", "bfloat16")
+    jcfg, cfg, jp, p = _moe_case(dtype, seed=len(name), **moe_kw)
+    x = np.random.default_rng(len(name)).standard_normal((*tokens, cfg.d_model)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    out, _ = moe.moe_apply(p, cfg, tx, impl="ref")
+    jout, _ = jax_moe.moe_apply(jp, jcfg, jx)
+    assert np.array_equal(_f32(out), np.asarray(jout, np.float32))
+
+
 def test_moe_expert_products_go_through_ops_gmm(monkeypatch):
     """Three products a MoE layer (up, gate, down), each over the (E*C, d)
     buffer with one row block of C rows per expert; up and gate in fp32."""

@@ -48,7 +48,9 @@ def test_port_files_exist():
     assert {f"src/repro_torch/{m}.py" for m in
             ("core/rl/__init__", "core/rl/env", "core/rl/dqn", "core/rl/batched_train",
              "core/batched/env", "optim/__init__", "optim/adamw", "optim/schedule",
-             "launch/train_rl")} <= listed
+             "launch/train_rl", "core/engine", "core/schedulers", "core/rl/agent",
+             "core/rl/train", "forecast/forecaster", "forecast/policy", "sweep/cells",
+             "launch/cluster_sim", "launch/evaluate")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
