@@ -166,6 +166,28 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               checked-in npz as the registry's ``"dqn"`` (event cadence): ET
               and the improvement over NoMIG per model, measured, not gated.
 
+Then the training path (``repro_torch.launch.train``: ``loss_fn`` with the
+chunked softmax, ``make_train_step``, ``SyntheticLM``, the checkpoint store),
+which trains through autograd on the plain versions at ``impl="ref"``, as the
+reference does (the four kernels are forward-only and stay off it):
+
+30. train_parity — for each ported arch at its smoke config in fp32 (granite
+              with 2 microbatches), one ``make_train_step`` step from the
+              same parameters and non-zero optimiser state on the same
+              ``SyntheticLM`` batch, on the card and on the CPU: loss and
+              grad norm within 1e-5 relative, every parameter within 1e-5
+              of its leaf's largest, m and v within 1e-4; the worst leaf of
+              each arch.
+31. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
+              (global batch 8, sequence 256, bf16; 0.9998 B parameters) for 6
+              steps with a checkpoint every 3 into a temporary directory
+              (its free disk first); then step 6 deleted and ``train`` again,
+              which must resume at step 3 and repeat steps 4-6 within 1e-3
+              relative (and says whether bit for bit). The losses, ms a step
+              (median after the first), tokens/s, peak GB, the checkpoint's GB
+              and files, the seconds of the host snapshot, the write and the
+              restore, K1-K4's launches (0), and torch.profiler over one step.
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -177,6 +199,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -374,6 +397,21 @@ EVAL_FORECAST_GOLDEN = ROOT / "tests" / "data" / "torch_eval_forecast_golden.jso
 EVAL_RACE_SCALE = 0.1  # rl_batched.json's scale
 EVAL_TABLE3_SCALE = 1.0
 
+# the training path: card against CPU at each ported arch's smoke config in
+# fp32 (granite with 2 microbatches), one step from a non-zero optimiser state
+TRAIN_PARITY_ARCHS = [("gemma3_1b", 1), (JAMBA, 1), (XLSTM, 1), (GRANITE, 2)]
+TRAIN_PARITY_SHAPE = (4, 64)  # global batch, sequence
+TRAIN_PARITY_LR = (1e-3, 1, 4)  # linear_warmup_cosine(base, warm-up, total)
+TRAIN_RTOL = 1e-5  # loss and grad_norm, relative
+TRAIN_PARAM_TOL = 1e-5  # every updated parameter, of its leaf's largest
+TRAIN_STATE_TOL = 1e-4  # m and v, of their leaf's largest (the gradients' bar)
+# gemma3-1b at full width and depth, the reference driver's defaults; resumed
+# from its step-3 checkpoint, steps 4-6 again
+TRAIN_ARCH = "gemma3_1b"
+TRAIN_SMOKE = False
+TRAIN_ARGS = {"steps": 6, "global_batch": 8, "seq_len": 256, "accum_steps": 1, "ckpt_every": 3}
+TRAIN_RESUME_RTOL = 1e-3
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -427,6 +465,8 @@ def main() -> int:
     phase_eval_replay(torch)
     phase_eval_race(torch)
     phase_eval_table3(torch)
+    phase_train_parity(torch)
+    phase_train(torch)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -2378,6 +2418,175 @@ def phase_eval_table3(torch) -> None:
     check(all(math.isfinite(v) for r in rows for k, v in r.items() if k != "model"),
           "eval_table3: non-finite row")
     check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
+
+
+
+def _worst(got, want, tol) -> dict:
+    """The leaf of ``got`` (card tensors) farthest from ``want`` (CPU tensors) in
+    units of that leaf's largest magnitude; ``ok``: every leaf within ``tol``."""
+    worst, ok = {"leaf": None, "rel": 0.0}, True
+    for (path, a), b in zip(got, want, strict=True):
+        scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
+        rel = float((a.cpu().float() - b.float()).abs().max()) / scale if b.numel() else 0.0
+        ok &= rel <= tol
+        if rel >= worst["rel"]:
+            worst = {"leaf": path, "rel": rel}
+    return {**worst, "ok": ok}
+
+
+def phase_train_parity(torch) -> None:
+    """One train step of each arch's fp32 smoke config, card against CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, AdamWConfig, OptState, linear_warmup_cosine
+    from repro_torch.tree import flatten_with_paths, leaves, path_key, unflatten
+
+    def card(t):
+        return t.to("cuda")
+
+    rows, failed = {}, []
+    _reset_counts()
+    for arch, accum in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32", param_dtype="float32",
+                                  remat="block")
+        opt = AdamW(AdamWConfig(lr=linear_warmup_cosine(*TRAIN_PARITY_LR)))
+        step = make_train_step(cfg, opt, accum_steps=accum, impl="ref")
+        data = SyntheticLM(cfg, *TRAIN_PARITY_SHAPE, seed=0)
+        # a non-zero optimiser state: the CPU's first step from init
+        params = init_params(cfg, seed=0, device="cpu")
+        p1, s1, _ = step(params, opt.init(leaves(params)), data.batch_for_step(0))
+        batch = data.batch_for_step(1)
+        p_cpu, s_cpu, m_cpu = step(p1, s1, batch)
+        p1_card = unflatten(p1, [card(t) for t in leaves(p1)])
+        s1_card = OptState(m=[card(t) for t in s1.m], v=[card(t) for t in s1.v], step=card(s1.step))
+        t0 = time.perf_counter()
+        p_card, s_card, m_card = step(p1_card, s1_card, batch)
+        loss = float(m_card["loss"])
+        card_s = time.perf_counter() - t0
+        paths = [path_key(p) for p, _ in flatten_with_paths(p_cpu)]
+        row = {
+            "accum_steps": accum, "loss_card": loss, "loss_cpu": float(m_cpu["loss"]),
+            "loss_rel": abs(loss - float(m_cpu["loss"])) / abs(float(m_cpu["loss"])),
+            "grad_norm_card": float(m_card["grad_norm"]), "grad_norm_cpu": float(m_cpu["grad_norm"]),
+            "step": [int(m_card["step"]), int(m_cpu["step"])], "card_step_s": card_s,
+            "params": _worst(zip(paths, leaves(p_card)), leaves(p_cpu), TRAIN_PARAM_TOL),
+            "m": _worst(zip(paths, s_card.m), s_cpu.m, TRAIN_STATE_TOL),
+            "v": _worst(zip(paths, s_card.v), s_cpu.v, TRAIN_STATE_TOL),
+        }
+        row["grad_norm_rel"] = abs(row["grad_norm_card"] - row["grad_norm_cpu"]) / row["grad_norm_cpu"]
+        rows[arch] = row
+        row["on_card"] = p_card["embed"].is_cuda and m_card["loss"].is_cuda
+        if not (row["loss_rel"] <= TRAIN_RTOL and row["grad_norm_rel"] <= TRAIN_RTOL
+                and row["step"] == [2, 2] and all(row[k]["ok"] for k in ("params", "m", "v"))
+                and row["on_card"]):
+            failed.append(arch)
+        del p1_card, s1_card, p_card, s_card
+    counts = _counts()
+    emit("train_parity", rows=rows, bars={"loss_rel": TRAIN_RTOL, "grad_norm_rel": TRAIN_RTOL,
+                                          "params": TRAIN_PARAM_TOL, "m_v": TRAIN_STATE_TOL},
+         model_kernel_launches=counts)
+    check(not failed, f"train_parity: off the bars: {failed}")
+    check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
+
+
+def _dir_gb(path) -> dict:
+    files = [os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs]
+    return {"gb": sum(os.path.getsize(f) for f in files) / 1e9, "files": len(files)}
+
+
+def phase_train(torch) -> None:
+    """gemma3-1b trained at full width by the port's driver; resumed from its own
+    step-3 checkpoint; one step under the profiler."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, AdamWConfig, linear_warmup_cosine
+    from repro_torch.tree import leaves
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        emit("train_disk", directory=directory, free_gb=shutil.disk_usage(directory).free / 1e9)
+        args = {"smoke": TRAIN_SMOKE, "ckpt_dir": directory, "verbose": False, **TRAIN_ARGS}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        first = {}
+        t0 = time.perf_counter()
+        params, losses = train(TRAIN_ARCH, stats=first, **args)
+        wall_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in leaves(params))
+        del params
+        torch.cuda.empty_cache()
+        steps = sorted(d for d in os.listdir(directory) if d.startswith("step_"))
+        ckpts = {d: _dir_gb(os.path.join(directory, d)) for d in steps}
+        last = f"step_{TRAIN_ARGS['steps']:08d}"
+        shutil.rmtree(os.path.join(directory, last))
+        second = {}
+        t0 = time.perf_counter()
+        params, resumed = train(TRAIN_ARCH, stats=second, **args)
+        resume_wall_s = time.perf_counter() - t0
+        counts = _counts()
+        del params
+        torch.cuda.empty_cache()
+        resumed_ckpt = _dir_gb(os.path.join(directory, last))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    # one step of the same configuration under the profiler, after a warm-up step
+    cfg = get_config(TRAIN_ARCH) if not TRAIN_SMOKE else smoke_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, scan_layers=True, remat="block")
+    opt = AdamW(AdamWConfig(lr=linear_warmup_cosine(3e-4, 1, TRAIN_ARGS["steps"])))
+    step = make_train_step(cfg, opt, impl="ref")
+    params = init_params(cfg, seed=0)
+    state = opt.init(leaves(params))
+    batch = SyntheticLM(cfg, TRAIN_ARGS["global_batch"], TRAIN_ARGS["seq_len"]).batch_for_step(0)
+    params, state, _ = step(params, state, batch)
+    box = {}
+
+    def one_step():
+        box["out"] = step(params, state, batch)
+
+    prof = _profile(torch, one_step, top=10, host_ops=False)
+    del params, state, box
+    torch.cuda.empty_cache()
+
+    k = TRAIN_ARGS["ckpt_every"]
+    step_ms = float(np.median(first["step_s"][1:])) * 1e3
+    tokens = TRAIN_ARGS["global_batch"] * TRAIN_ARGS["seq_len"]
+    again = losses[k:]
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, again)) if resumed else None
+    row = {
+        "arch": TRAIN_ARCH, "smoke": TRAIN_SMOKE, **TRAIN_ARGS, "parameters": n_params,
+        "losses": losses, "resumed_losses": resumed, "resume_max_rel_diff": resume_rel,
+        "resume_bitwise": resumed == again, "wall_s": wall_s, "resume_wall_s": resume_wall_s,
+        "step_s": first["step_s"], "resumed_step_s": second["step_s"],
+        "ms_per_step": step_ms, "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb,
+        "checkpoints": ckpts, "resumed_checkpoint": resumed_ckpt,
+        "snapshot_s": [t["snapshot_s"] for t in first["timings"] + second["timings"]],
+        "write_s": [t.get("write_s") for t in first["timings"] + second["timings"]],
+        "restore_s": second["restore_s"],
+        "profile_one_step": prof,
+        "device_idle_share": prof["device_idle_share"],
+        "model_kernel_launches": counts,
+    }
+    emit("train", **row)
+    check(len(losses) == TRAIN_ARGS["steps"] and all(math.isfinite(x) for x in losses),
+          f"train: losses {losses}")
+    check(first["restore_s"] is None and second["restore_s"] is not None,
+          "train: the first run restored, or the second did not")
+    check(len(resumed) == TRAIN_ARGS["steps"] - k and resume_rel <= TRAIN_RESUME_RTOL,
+          f"train: resumed {resumed} against {again}")
+    check(steps == [f"step_{s:08d}" for s in range(k, TRAIN_ARGS["steps"] + 1, k)],
+          f"train: checkpoints {steps}")
+    check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
 
 
 if __name__ == "__main__":

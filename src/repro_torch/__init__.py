@@ -11,5 +11,8 @@ and granite-moe-3b-a800m (:mod:`repro_torch.models`,
 (:mod:`repro_torch.kernels`); the batched MIG simulator
 (:mod:`repro_torch.core.batched`); and the on-device DQN repartitioning
 trainer (:mod:`repro_torch.core.rl`, :mod:`repro_torch.optim`,
-:mod:`repro_torch.launch.train_rl`).
+:mod:`repro_torch.launch.train_rl`); the evaluation path
+(:mod:`repro_torch.launch.evaluate`); and the LM training path
+(:mod:`repro_torch.launch.train`: ``loss_fn``, :mod:`repro_torch.distributed`,
+:mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`).
 """

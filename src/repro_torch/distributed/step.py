@@ -1,0 +1,145 @@
+"""Train / serve step builders (counterpart of ``repro.distributed.step``).
+
+``make_train_step`` takes one optimiser step from the loss's gradients, with
+optional accumulation over microbatches: the leading batch dimension is
+split into ``(accum_steps, micro)``, each microbatch's gradients are added in
+fp32 and kept in ``grad_accum_dtype``, and the loss and gradients are divided
+by ``accum_steps``. Gradients come from autograd through the model's plain
+versions (``impl="ref"`` in the trainer, as the reference trains): the
+kernels are forward-only, so a step that would launch them raises.
+
+Every step runs on the device its parameters lie on. The parameter tree's
+leaves are walked in JAX's order (:mod:`repro_torch.tree`), so the port's
+``AdamW`` (which takes lists) sees the reference's leaf order and the global
+gradient norm adds in the reference's order.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import decode_step as model_decode
+from repro_torch.models import forward as model_forward
+from repro_torch.models import loss_fn as model_loss
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import Params
+from repro_torch.optim import AdamW, OptState
+from repro_torch.tree import leaves, unflatten
+
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step", "train_state",
+           "from_train_state"]
+
+
+def _device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+def _value_and_grad(cfg: ArchConfig, params: Params, batch, impl: str, loss_chunk: int = 512):
+    """(loss, grads in the params' leaf order) of ``loss_fn`` at ``params``."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    if ops.resolve_impl(impl, flat[0]) == "cuda":
+        raise ValueError("the CUDA kernels are forward-only (no backward, as the reference's "
+                         "Pallas kernels have no custom_vjp): train at impl='ref'")
+    with torch.enable_grad():
+        loss = model_loss(cfg, unflatten(params, flat), batch, impl=impl, loss_chunk=loss_chunk,
+                          device=flat[0].device)
+        grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), list(grads)
+
+
+def _microbatches(batch: Dict[str, np.ndarray], accum_steps: int) -> List[Dict[str, np.ndarray]]:
+    """Split the leading batch dimension into (accum, micro); the i-th micro slice each."""
+
+    def reshape(x):
+        b = x.shape[0]
+        assert b % accum_steps == 0, (b, accum_steps)
+        return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
+
+    split = {k: reshape(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(accum_steps)]
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    optimizer: AdamW,
+    accum_steps: int = 1,
+    impl: str = "auto",
+    grad_accum_dtype: str = "float32",
+) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``opt_state`` is the port's ``OptState`` over ``leaves(params)`` (as
+    ``optimizer.init(leaves(params))`` makes it). The update is pure: new
+    parameters and state are returned, and the caller rebinds its names so
+    the old ones are freed. ``metrics`` holds ``loss``, ``grad_norm`` (of
+    the unclipped gradients) and ``step`` as device scalars.
+    """
+    acc_dt = getattr(torch, grad_accum_dtype)
+
+    def train_step(params: Params, opt_state: OptState, batch):
+        if accum_steps == 1:
+            loss, grads = _value_and_grad(cfg, params, batch, impl)
+        else:
+            dev = _device(params)
+            grads = [torch.zeros(p.shape, dtype=acc_dt, device=dev) for p in leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in _microbatches(batch, accum_steps):
+                l, g = _value_and_grad(cfg, params, mb, impl)
+                grads = [(a.float() + b.float()).to(acc_dt) for a, b in zip(grads, g, strict=True)]
+                loss = loss + l
+            grads = [g.float() / accum_steps for g in grads]
+            loss = loss / accum_steps
+
+        with torch.no_grad():
+            new_leaves, opt_state2 = optimizer.update(grads, opt_state, leaves(params))
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state2.step}
+        return unflatten(params, new_leaves), opt_state2, metrics
+
+    return train_step
+
+
+def make_serve_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
+    """Returns serve_step(params, cache, token, index) -> (logits, cache).
+
+    One new token per request with the KV cache / recurrent state carried
+    (updated in place). The port's ``decode_step`` picks each op's route by
+    the tensors' device, so ``impl`` is ``"auto"`` only.
+    """
+    if impl != "auto":
+        raise ValueError(f"make_serve_step: the port's decode runs at impl='auto', not {impl!r}")
+
+    def serve_step(params, cache, token, index, enc_out=None):
+        if enc_out is not None:
+            raise NotImplementedError("encoder outputs are not ported yet; ROADMAP.md A.5")
+        return model_decode(cfg, params, cache, token, index, device=_device(params))
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
+    """Returns prefill_step(params, batch) -> last-position logits."""
+
+    def prefill_step(params, batch):
+        logits, _ = model_forward(cfg, params, batch, impl=impl, device=_device(params))
+        return logits[:, -1, :]
+
+    return prefill_step
+
+
+def train_state(params: Params, opt_state: OptState) -> Dict:
+    """The trainer's checkpoint tree ``{"params", "opt"}``, with ``m`` and ``v``
+    as trees shaped as ``params``: the reference's keys (``opt/m/blocks/...``)."""
+    return {"params": params, "opt": OptState(m=unflatten(params, opt_state.m),
+                                              v=unflatten(params, opt_state.v),
+                                              step=opt_state.step)}
+
+
+def from_train_state(state: Dict) -> Tuple[Params, OptState]:
+    """(params, the port's ``OptState`` of leaf lists) from :func:`train_state`'s tree."""
+    opt = state["opt"]
+    return state["params"], OptState(m=leaves(opt.m), v=leaves(opt.v), step=opt.step)

@@ -1,0 +1,149 @@
+"""Training driver on one card (counterpart of ``repro.launch.train``).
+
+``python -m repro_torch.launch.train --arch gemma3-1b --smoke --device cpu
+--steps 40`` trains the reduced config on the CPU; ``--arch gemma3-1b --full``
+the full config on the card. What it exercises: deterministic restart-safe
+data (:class:`~repro_torch.data.SyntheticLM`), the train step at
+``impl="ref"`` with ``remat="block"``, async checkpoints every
+``ckpt_every`` steps, resume from the newest checkpoint, loss logging. There
+is one card and no mesh: ``production_mesh=True`` raises (ROADMAP.md A.7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager, latest_step, restore_checkpoint
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.step import from_train_state, make_train_step, train_state
+from repro_torch.models import init_params
+from repro_torch.optim import AdamW, AdamWConfig, linear_warmup_cosine
+from repro_torch.tree import leaves, unflatten
+
+__all__ = ["train", "main"]
+
+
+def _meta(tree):
+    """``tree`` as meta tensors: the restore's target, holding no memory."""
+    return unflatten(tree, [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                            for t in leaves(tree)])
+
+
+def train(
+    arch: str,
+    steps: int = 100,
+    smoke: bool = True,
+    global_batch: int = 8,
+    seq_len: int = 256,
+    accum_steps: int = 1,
+    lr: float = 3e-4,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 50,
+    seed: int = 0,
+    production_mesh: bool = False,
+    log_every: int = 10,
+    verbose: bool = True,
+    device: DeviceLike = None,
+    stats: Optional[Dict] = None,
+):
+    """Train ``steps`` steps (resuming from ``ckpt_dir``'s newest checkpoint);
+    returns ``(params, losses)``, the losses of the steps this call ran.
+
+    ``stats``, if given, is filled with the wall seconds of each step
+    (``step_s``, up to the loss reaching the host), of the restore
+    (``restore_s``) and the checkpoint manager's ``timings``.
+    """
+    if production_mesh:
+        raise NotImplementedError(
+            "production_mesh: the port trains on one card and has no mesh yet; ROADMAP.md A.7"
+        )
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(cfg, scan_layers=True, remat="block")
+    dev = resolve_device(device)
+
+    opt = AdamW(AdamWConfig(lr=linear_warmup_cosine(lr, max(steps // 20, 1), steps)))
+    step_fn = make_train_step(cfg, opt, accum_steps=accum_steps, impl="ref")
+
+    params = init_params(cfg, seed=seed, device=dev)
+    opt_state = opt.init(leaves(params))
+
+    data = SyntheticLM(cfg, global_batch, seq_len, seed=seed)
+    start_step = 0
+    manager = None
+    stats = {} if stats is None else stats
+    stats.update(step_s=[], restore_s=None)
+    if ckpt_dir:
+        manager = CheckpointManager(ckpt_dir)
+        stats["timings"] = manager.timings
+        last = latest_step(ckpt_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            target = _meta(train_state(params, opt_state))
+            del params, opt_state  # freed before the restore allocates their successors
+            params, opt_state = from_train_state(
+                restore_checkpoint(ckpt_dir, last, target, device=dev))
+            stats["restore_s"] = time.perf_counter() - t0
+            start_step = last
+            if verbose:
+                print(f"resumed from step {last}")
+
+    losses = []
+    t0 = time.time()
+    for step in range(start_step, steps):
+        t_step = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, data.batch_for_step(step))
+        losses.append(float(metrics["loss"]))
+        stats["step_s"].append(time.perf_counter() - t_step)
+        if verbose and (step + 1) % log_every == 0:
+            dt = (time.time() - t0) / max(step + 1 - start_step, 1)
+            print(
+                f"step {step + 1}/{steps} loss={losses[-1]:.4f} "
+                f"gnorm={float(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms/step)"
+            )
+        if manager and (step + 1) % ckpt_every == 0:
+            manager.save_async(step + 1, train_state(params, opt_state))
+    if manager:
+        manager.wait()
+    return params, losses
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--accum-steps", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args()
+    _, losses = train(
+        args.arch,
+        steps=args.steps,
+        smoke=args.smoke,
+        global_batch=args.global_batch,
+        seq_len=args.seq_len,
+        accum_steps=args.accum_steps,
+        lr=args.lr,
+        ckpt_dir=args.ckpt_dir,
+        production_mesh=args.production_mesh,
+        device=args.device,
+    )
+    n = max(len(losses) // 10, 1)
+    print(f"first-{n} loss {np.mean(losses[:n]):.4f} -> last-{n} {np.mean(losses[-n:]):.4f}")
+
+
+if __name__ == "__main__":
+    main()

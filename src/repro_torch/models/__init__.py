@@ -17,6 +17,7 @@ from repro_torch.models.transformer import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
 )
 
 __all__ = [
@@ -26,6 +27,7 @@ __all__ = [
     "EncoderConfig",
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "decode_step",
     "abstract_params",

@@ -15,6 +15,7 @@ ROADMAP.md item.
 Entry points:
 * :func:`init_params`  — random parameters from a seeded ``torch.Generator``
 * :func:`forward`      — full-sequence (prefill / scoring) -> logits, aux
+* :func:`loss_fn`      — next-token cross-entropy, sequence-chunked softmax (training)
 * :func:`init_cache`   — per-layer decode state (KV cache / SSM / xLSTM state), stacked like the params
 * :func:`decode_step`  — one token against the cache (updated in place)
 
@@ -28,6 +29,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init, init_kv_cache
@@ -45,11 +47,13 @@ from repro_torch.models.xlstm import (
     slstm_block_init,
     slstm_state_init,
 )
+from repro_torch.tree import leaves
 
 __all__ = [
     "init_params",
     "abstract_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "decode_step",
     "apply_unit",
@@ -230,15 +234,68 @@ def forward(
     _check_ported(cfg)
     dev = resolve_device(device)
     tokens = _device_tokens(params, batch["tokens"], dev)
-    x = _embed(cfg, params, tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    x, aux = _run_blocks(cfg, params, _embed(cfg, params, tokens), impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(cfg, params, x), aux
+
+
+def _run_blocks(
+    cfg: ArchConfig, params: Params, x: torch.Tensor, impl: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every repeat of the pattern unit over ``x``; (x, the summed MoE aux loss).
+
+    With ``cfg.remat == "block"`` and autograd recording, each unit runs
+    under a non-reentrant ``torch.utils.checkpoint``, as the reference wraps
+    its scan body in ``jax.checkpoint``: only the unit's input is kept, and
+    the backward pass runs the unit again. The values are the same bits.
+    """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_units = len(cfg.pattern_unit())
     for r in range(cfg.num_pattern_repeats):
         unit = tuple(_index(params["blocks"][f"u{u}"], r) for u in range(n_units))
-        x, a = apply_unit(cfg, unit, x, impl=impl)
+        records = torch.is_grad_enabled() and any(t.requires_grad for t in leaves((x, unit)))
+        if cfg.remat == "block" and records:
+            x, a = checkpoint(apply_unit, cfg, unit, x, impl=impl, use_reentrant=False)
+        else:
+            x, a = apply_unit(cfg, unit, x, impl=impl)
         aux = aux + a
+    return x, aux
+
+
+def loss_fn(
+    cfg: ArchConfig,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    impl: str = "auto",
+    loss_chunk: int = 512,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Next-token cross-entropy (mean over B*S tokens) plus the MoE aux loss.
+
+    The softmax runs over sequence chunks of ``min(loss_chunk, S)`` positions
+    (one chunk of S where that does not divide S), as the reference's
+    ``lax.map`` does: the logits of a chunk are fp32 (:func:`_logits`), each
+    chunk gives ``sum(logsumexp - gold)``, the chunks' sums are summed, then
+    divided by B*S.
+    """
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    tokens = _device_tokens(params, batch["tokens"], dev)
+    labels = _device_tokens(params, batch["labels"], dev)
+    x, aux = _run_blocks(cfg, params, _embed(cfg, params, tokens), impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(cfg, params, x), aux
+    B, S, _ = x.shape
+    chunk = min(loss_chunk, S)
+    if S % chunk:
+        chunk = S
+    sums = []
+    for c0 in range(0, S, chunk):
+        logits = _logits(cfg, params, x[:, c0 : c0 + chunk])
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0 : c0 + chunk, None])[..., 0]
+        sums.append(torch.sum(lse - gold))
+    return torch.sum(torch.stack(sums)) / (B * S) + aux
 
 
 # ============================== decode =====================================

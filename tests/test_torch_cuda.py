@@ -950,3 +950,99 @@ def test_eval_entry_points_raise_when_no_card_is_present(card, monkeypatch):
                  lambda: PE.main(["--table3", "--scale", "0.1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# ------------------------------ the trainer ---------------------------------
+# repro_torch.distributed.make_train_step (loss_fn through autograd on the
+# plain versions, impl="ref", as the reference trains) on the card against
+# the CPU, the checkpoint store with card tensors, and two identical bf16
+# steps of gemma3-1b's smoke config; chip_smoke.py's train_parity and train
+# phases hold every arch and the full-width run
+
+
+def _train_setup(arch, dtype, accum=1):
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig, linear_warmup_cosine
+
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype, param_dtype=dtype, remat="block")
+    opt = AdamW(AdamWConfig(lr=linear_warmup_cosine(1e-3, 1, 4)))
+    step = make_train_step(cfg, opt, accum_steps=accum, impl="ref")
+    return cfg, opt, step, SyntheticLM(cfg, 4, 64, seed=0)
+
+
+def _to(tree_or_state, device):
+    from repro_torch.optim import OptState
+    from repro_torch.tree import leaves, unflatten
+
+    if isinstance(tree_or_state, OptState):
+        return OptState(m=[t.to(device) for t in tree_or_state.m],
+                        v=[t.to(device) for t in tree_or_state.v],
+                        step=tree_or_state.step.to(device))
+    return unflatten(tree_or_state, [t.to(device) for t in leaves(tree_or_state)])
+
+
+@pytest.mark.parametrize("arch, accum", [("gemma3_1b", 1), ("granite_moe_3b_a800m", 2)])
+def test_train_step_on_the_card_matches_the_cpu(card, arch, accum):
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    cfg, opt, step, data = _train_setup(arch, "float32", accum)
+    params = init_params(cfg, seed=0, device="cpu")
+    p1, s1, _ = step(params, opt.init(leaves(params)), data.batch_for_step(0))
+    p_cpu, s_cpu, m_cpu = step(p1, s1, data.batch_for_step(1))
+    p_card, s_card, m_card = step(_to(p1, card), _to(s1, card), data.batch_for_step(1))
+    assert m_card["loss"].is_cuda and p_card["embed"].is_cuda
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= 1e-5 * abs(float(m_cpu[k])), k
+    assert int(m_card["step"]) == 2
+    for a, b in zip(leaves(p_card), leaves(p_cpu), strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30)
+    for a, b in zip(s_card.m + s_card.v, s_cpu.m + s_cpu.v, strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+def test_train_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn((64, 32), generator=gen, device=card).to(torch.bfloat16),
+            "opt": [torch.randn((7,), generator=gen, device=card), torch.tensor(3, device=card,
+                                                                               dtype=torch.int32)]}
+    save_checkpoint(str(tmp_path), 1, tree)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(2, tree)
+    tree["w"].zero_()  # the snapshot was taken before save_async returned
+    mgr.wait()
+    want = [torch.randn((64, 32), generator=torch.Generator(device=card).manual_seed(0),
+                        device=card).to(torch.bfloat16)]
+    for step in (1, 2):
+        out = restore_checkpoint(str(tmp_path), step, tree)  # device=None: the card
+        assert all(t.is_cuda for t in leaves(out))
+        assert torch.equal(out["w"].view(torch.int16), want[0].view(torch.int16))
+        assert torch.equal(out["opt"][0], tree["opt"][0]) and int(out["opt"][1]) == 3
+    cpu = restore_checkpoint(str(tmp_path), 2, tree, device="cpu")
+    assert cpu["w"].device.type == "cpu" and torch.equal(cpu["w"], want[0].cpu())
+
+
+def test_train_bf16_step_gives_the_same_bits_twice(card):
+    """Two identical bf16 steps of gemma3-1b's smoke config: the same loss,
+    gradient norm, parameters and moments, bit for bit."""
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    cfg, opt, step, data = _train_setup("gemma3_1b", "bfloat16")
+    params = init_params(cfg, seed=0, device=card)
+    state = opt.init(leaves(params))
+    batch = data.batch_for_step(0)
+    a = step(params, state, batch)
+    b = step(params, state, batch)
+    assert torch.equal(a[2]["loss"], b[2]["loss"])
+    assert torch.equal(a[2]["grad_norm"], b[2]["grad_norm"])
+    for x, y in zip(leaves(a[0]) + a[1].m + a[1].v, leaves(b[0]) + b[1].m + b[1].v, strict=True):
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                           y.view(torch.int16) if y.dtype == torch.bfloat16 else y)

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine).
+"""The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine),
+nor ``ml_dtypes``, which comes with JAX and is absent on the card's machine.
 
 Nor does ``tests/torch_rl_golden.py``, which ``chip_smoke.py`` imports on a
 machine without JAX."""
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py"]
-BANNED = ("jax", "repro")
+BANNED = ("jax", "repro", "ml_dtypes")
 
 
 def _banned(module: str) -> bool:
@@ -50,7 +51,8 @@ def test_port_files_exist():
              "core/batched/env", "optim/__init__", "optim/adamw", "optim/schedule",
              "launch/train_rl", "core/engine", "core/schedulers", "core/rl/agent",
              "core/rl/train", "forecast/forecaster", "forecast/policy", "sweep/cells",
-             "launch/cluster_sim", "launch/evaluate")} <= listed
+             "launch/cluster_sim", "launch/evaluate", "tree", "data/pipeline",
+             "checkpoint/store", "distributed/step", "launch/train")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -72,6 +74,8 @@ def test_port_imports_no_jax_and_no_repro(path):
     ("from repro_torch.models import config", False),
     ("import importlib\nimportlib.import_module(f'repro_torch.configs.{name}')", False),
     ("import jaxlib_free_module", False),
+    ("import ml_dtypes", True),
+    ("from ml_dtypes import bfloat16", True),
     ("from . import ops", False),
 ])
 def test_checker_flags_exactly_jax_and_repro(source, bad):
