@@ -88,17 +88,45 @@ products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
               K4's launches in those steps.
 22. granite_serve — ``serve("granite_moe_3b_a800m", smoke=False, ...)``.
 
+Then the remaining one-card configs, at their published widths: whisper-base
+(6 + 6 layers; the encoder over precomputed frame embeddings and a
+cross-attention in each decoder layer), gemma3-12b (48 layers), mixtral-8x7b
+cut to 16 of its 32 one-layer units (46.9 GB in bf16), stablelm-3b (32) and
+phi-3-vision-4.2b (32; 576 patch embeddings before the text):
+
+23. a5_attention — flash attention against its plain version (both bf16
+              bars) at every shape these paths give it: whisper's encoder
+              (non-causal, 1,500 frames), decoder (causal, 448), cross (448
+              against 1,500) and decode cross (1 against 1,500); gemma3-12b's
+              local (window 1,024) and global layers (16/8 heads of 256);
+              mixtral's window (4,096 at S 8,192); stablelm's D 80 and
+              phi-3-vision's D 96 over 2,624 positions; per shape the kernel
+              (CUDA graph, and eager), plain, SDPA and bound times.
+24-28. {whisper, gemma3_12b, mixtral, stablelm, phi3_vision}_{prefill,
+              decode, serve} — per config: the fp32 kernel against the plain
+              path through the whole model (logits 1e-5·max; mixtral at 8
+              layers and S 6,144), fp32 ``decode_step`` x16 against
+              ``forward`` on the same parameters (2e-2; whisper's with
+              ``encode``'s output as ``enc_out``, 6 K1 a step), the bf16 main
+              path at A5_PREFILL's shape counted from 0 (K1 18 whisper, 48
+              gemma3-12b, 16 mixtral with 48 K4, 32 stablelm, 32
+              phi-3-vision; finite logits of the text positions, top-1 against
+              the plain path >= 0.99, wall time, tokens/s, peak GB; one
+              prefill under torch.profiler: device time by kernel, the idle
+              share), then ``serve`` (batch 4, 32 steps; whisper decodes
+              without ``enc_out``, as the reference's ``serve`` does).
+
 Then the batched MIG simulator (``repro_torch.core.batched``), which runs no
 kernel of the four (its step is batched torch ops):
 
-23. sim_parity — ``simulate_batch`` on the card for the eight rows of
+29. sim_parity — ``simulate_batch`` on the card for the eight rows of
               tests/test_batched.py's agreement matrix (6 seeds a row, load
               0.2; rows of one policy kind and mode in one batch), held to
               the port's CPU run on the same inputs and to the JAX
               reference's aggregates in tests/data/torch_sim_golden.json
               (integers exact; the bars of tests/test_torch_sim.py); the
               largest difference of each aggregate per row.
-24. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
+30. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
               (a) 2048 rollouts at load 1.0, the width of the RL training run
               of benchmarks/baselines/rl_batched.json; (b) 256 at load 12.0,
               the headline point of benchmarks/baselines/batched_agreement.json.
@@ -115,7 +143,7 @@ Then the on-device DQN trainer (``repro_torch.core.rl``), whose step is the
 simulator's and whose learner is an MLP of three matmuls (no kernel of the
 four):
 
-25. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
+31. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
               runs of the port: the checked-in parameters
               (benchmarks/baselines/rl_dqn_params.npz) give rl_batched.json's
               params_probe (seed 123, 16 greedy actions); argmax takes the
@@ -129,7 +157,7 @@ four):
               parameters 1e-5); ``BatchedRepartitionEnv`` through the golden
               file's scripted day at B 8 (observations bit for bit, rewards,
               flags, results).
-26. rl_train — ``train_dqn_batched`` at the baseline's configuration (B 64,
+32. rl_train — ``train_dqn_batched`` at the baseline's configuration (B 64,
               104 decisions of 15 minutes, n-step 8, the four training
               scenarios at loads 0.8-1.2) for 2 rounds: wall time of each
               round, env-steps/s, updates, the final epsilon, the finite
@@ -144,7 +172,7 @@ simulator, the four schedulers, the policy registry and the forecast
 controller (float64 host code), with the greedy DQN's Q network on the card
 (no kernel of the four):
 
-27. eval_replay — every cell of the four checked-in sweep baselines
+33. eval_replay — every cell of the four checked-in sweep baselines
               (benchmarks/baselines/{smoke_sweep, scenario_matrix,
               repartition_policies, repartition_modes}.jsonl, 464 rows)
               through the port's ``run_cell``; per file the rows, the rows
@@ -153,7 +181,7 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               the seconds; the forecaster's fitted coefficients against the
               reference's (tests/data/torch_eval_forecast_golden.json). Any
               row off fails.
-28. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
+34. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
               port's learner on the card and raced against the forecast
               controller on the six families at scale 0.1, as
               scripts/train_rl_baseline.py's check does: each row and
@@ -161,7 +189,7 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               wall time, every decision whose action differs from the port's
               CPU run with its Q gap, and over one profiled day the Q
               network's launches and device time per decision.
-29. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
+35. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
               NoMIG, static config 3, DayNight, the queue heuristic and the
               checked-in npz as the registry's ``"dqn"`` (event cadence): ET
               and the improvement over NoMIG per model, measured, not gated.
@@ -171,14 +199,14 @@ chunked softmax, ``make_train_step``, ``SyntheticLM``, the checkpoint store),
 which trains through autograd on the plain versions at ``impl="ref"``, as the
 reference does (the four kernels are forward-only and stay off it):
 
-30. train_parity — for each ported arch at its smoke config in fp32 (granite
-              with 2 microbatches), one ``make_train_step`` step from the
-              same parameters and non-zero optimiser state on the same
-              ``SyntheticLM`` batch, on the card and on the CPU: loss and
-              grad norm within 1e-5 relative, every parameter within 1e-5
-              of its leaf's largest, m and v within 1e-4; the worst leaf of
-              each arch.
-31. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
+36. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
+              configs in fp32 (granite with 2 microbatches), one
+              ``make_train_step`` step from the same parameters and non-zero
+              optimiser state on the same ``SyntheticLM`` batch, on the
+              card and on the CPU: loss and grad norm within 1e-5 relative,
+              every parameter within 1e-5 of its leaf's largest, m and v
+              within 1e-4; the worst leaf of each arch.
+37. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
               (global batch 8, sequence 256, bf16; 0.9998 B parameters) for 6
               steps with a checkpoint every 3 into a temporary directory
               (its free disk first); then step 6 deleted and ``train`` again,
@@ -339,6 +367,52 @@ GMM_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # one fp32 MoE layer, kernel vs plain: max |diff| <= MOE_RTOL * max |plain|
 MOE_RTOL = 1e-5
 
+# the remaining one-card configs (ROADMAP.md A.5), at their published widths
+WHISPER = "whisper_base"
+GEMMA12 = "gemma3_12b"
+MIXTRAL = "mixtral_8x7b"
+STABLELM = "stablelm_3b"
+PHI3V = "phi3_vision_4_2b"
+# mixtral-8x7b cut to 16 of its 32 one-layer units (46.9 GB in bf16: one stage
+# of a two-stage pipeline); its fp32 check at 8 (47.5 GB)
+MIXTRAL_LAYERS = 16
+# per config: the bf16 prefill's batch and text length, the fp32 check's depth
+# (None: the config's) and text length. whisper: 8 clips of 30 s (1,500 encoder
+# frames each) against Whisper's 448-token decoder context; phi-3-vision: 576
+# patch embeddings before 2,048 text tokens; mixtral: one sequence past its
+# 4,096 window (at B 2 x S 2,048 the window would not mask), its fp32 check at
+# S 6,144, where the window masks the last 2,048 rows' first keys and the plain
+# attention's (1, 32, 6144, 6144) fp32 scores leave room beside 47.5 GB
+A5_PREFILL = {
+    WHISPER: (8, 448, None, 448),
+    GEMMA12: (PREFILL_B, PREFILL_S, None, PREFILL_S),
+    MIXTRAL: (1, 8192, 8, 6144),
+    STABLELM: (PREFILL_B, PREFILL_S, None, PREFILL_S),
+    PHI3V: (PREFILL_B, PREFILL_S, None, PREFILL_S),
+}
+# flash attention at each shape these configs' main paths give it, bf16, and its
+# launches a bf16 forward: whisper's encoder (non-causal, 1,500 frames, ragged
+# against every tile), decoder self-attention (causal, 448) and cross-attention
+# (non-causal, 448 against 1,500; in a decode step with ``enc_out``, 1 against
+# 1,500); gemma3-12b's local (window 1,024) and global layers (GQA 2 in the
+# D 256 tile); mixtral's window of 4,096 at S 8,192; stablelm's D 80 and
+# phi-3-vision's D 96 over 576 + 2,048 positions (a ragged last tile)
+A5_ATTN = {
+    WHISPER: {"encoder": ((8, 1500, 1500, 8, 8, 64, False, None, None, 0, "bfloat16"), 6),
+              "self": ((8, 448, 448, 8, 8, 64, True, None, None, 0, "bfloat16"), 6),
+              "cross": ((8, 448, 1500, 8, 8, 64, False, None, None, 0, "bfloat16"), 6),
+              "decode_cross": ((8, 1, 1500, 8, 8, 64, False, None, None, 0, "bfloat16"), 0)},
+    GEMMA12: {"local": ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 256, True, 1024, None, 0, "bfloat16"), 40),
+              "global": ((PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 256, True, None, None, 0, "bfloat16"), 8)},
+    MIXTRAL: {"window": ((1, 8192, 8192, 32, 8, 128, True, 4096, None, 0, "bfloat16"), MIXTRAL_LAYERS)},
+    STABLELM: {"causal": ((PREFILL_B, PREFILL_S, PREFILL_S, 32, 32, 80, True, None, None, 0, "bfloat16"), 32)},
+    PHI3V: {"causal": ((PREFILL_B, 2624, 2624, 32, 32, 96, True, None, None, 0, "bfloat16"), 32)},
+}
+# the fp32 check at the full depth where it fits (gemma3-12b: 47 GB), else the
+# depth above; the decode check (fp32, 16 steps against forward) on the same
+# parameters
+A5_DECODE_STEPS = 16
+
 # the batched MIG simulator: tests/test_batched.py's agreement matrix
 # (scenario, policy, repartition mode), 6 seeds a row at load 0.2, as
 # tests/test_torch_sim.py and the golden file hold it
@@ -458,6 +532,8 @@ def main() -> int:
     granite = phase_granite_prefill(torch, dev)
     phase_granite_decode(torch, dev)
     phase_granite_serve(torch)
+    a5_fa = phase_a5_attention(torch, dev)
+    a5 = {name: phase_a5_model(torch, dev, name) for name in A5_PREFILL}
     phase_sim_parity(torch)
     phase_sim_throughput(torch)
     phase_rl_parity(torch)
@@ -471,18 +547,21 @@ def main() -> int:
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
     # K4's row holds its first path's numbers (granite, per launch over a
-    # forward's 96); the jamba path's stand beside them under by_path
+    # forward's 96); the jamba and mixtral paths' stand beside them under by_path
     gmm_paths[GRANITE]["launches"] = granite["gmm"]
     gmm_paths[JAMBA]["launches"] = launches["gmm"]
+    gmm_paths[MIXTRAL]["launches"] = a5[MIXTRAL]["gmm"]
     gmm_row.update({k: gmm_paths[GRANITE][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                                       "bound_ms", "bound_by", "library_ms")})
     gmm_row["by_path"] = gmm_paths
     # flash attention's row keeps its first path's numbers (gemma3-1b, per launch
-    # over a forward's 26); the jamba and granite paths' stand beside them under by_path
+    # over a forward's 26); the other paths' stand beside them under by_path
     fa_row.update({k: gemma_fa[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "tflops")})
     gemma_fa["max_abs_err"] = fa_row["max_abs_err"]
-    fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa, GRANITE: granite_fa}
+    for name, row in a5_fa.items():
+        row["launches"] = a5[name]["flash_attention"]
+    fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa, GRANITE: granite_fa, **a5_fa}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [fa_row, ms_row, ml_row, gmm_row]}), flush=True)
@@ -1114,12 +1193,15 @@ def phase_jamba_kernels(torch, dev):
 
 
 def _cfg(name, dtype="bfloat16", **moe):
-    """A path's config in ``dtype``, jamba cut to JAMBA_LAYERS, with MoE overrides."""
+    """A path's config in ``dtype``, jamba cut to JAMBA_LAYERS and mixtral to
+    MIXTRAL_LAYERS, with MoE overrides."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype)
     if name == JAMBA:
         cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+    if name == MIXTRAL:
+        cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     return cfg
@@ -1570,17 +1652,21 @@ def _capacity(cfg, tokens: int) -> int:
     return int(np.ceil(tokens * mc.top_k / mc.num_experts * mc.capacity_factor))
 
 
+# the MoE paths, with the tokens of their prefill: B 2 x S 2048, mixtral B 1 x S 8192
+GMM_PATHS = {GRANITE: PREFILL_B * PREFILL_S, JAMBA: PREFILL_B * PREFILL_S, MIXTRAL: 8192}
+
+
 def _gmm_products(torch):
-    """The main paths' K4 launches at B=2, S=2048 prefill and batch-4 decode:
+    """The main paths' K4 launches at their prefill and at batch-4 decode:
     (path, product, groups E, rows per group C, K, N, output type, launches per
     forward). Up and gate return fp32 (the reference keeps them fp32 up to the
     activation); down returns the activations' type."""
     rows = []
-    for name in (GRANITE, JAMBA):
+    for name, prefill_tokens in GMM_PATHS.items():
         cfg = _cfg(name)
         n_moe = sum(m for _, m in cfg.pattern_unit()) * cfg.num_pattern_repeats
         E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
-        for phase, tokens in (("prefill", PREFILL_B * PREFILL_S), ("decode", 4)):
+        for phase, tokens in (("prefill", prefill_tokens), ("decode", 4)):
             C = _capacity(cfg, tokens)
             rows.append((name, f"{phase}_up_gate", E, C, d, f, torch.float32, 2 * n_moe))
             rows.append((name, f"{phase}_down", E, C, f, d, torch.bfloat16, n_moe))
@@ -1701,7 +1787,7 @@ def phase_gmm_kernels(torch, dev):
           + json.dumps([r for r in cases + paths if not r["ok"]]))
 
     by_path = {}
-    for name in (GRANITE, JAMBA):
+    for name in GMM_PATHS:
         rows = [r for r in paths if r["path"] == name and r["product"].startswith("prefill")]
         n = sum(r["launches_per_forward"] for r in rows)
         agg = {k: sum(r[k] * r["launches_per_forward"] for r in rows) / n
@@ -1871,6 +1957,189 @@ def phase_granite_serve(torch) -> None:
          ms_per_step=batch / tps * 1e3, launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "granite serve returned no rate")
     check(counts["gmm"] == 3 * n_layers * steps, f"granite serve launched {counts}")
+
+
+# ------------------------- the remaining one-card configs ---------------------
+
+
+def phase_a5_attention(torch, dev) -> dict:
+    """K1 at every shape of A5_ATTN against its plain version (both bf16 bars),
+    with its kernel (CUDA graph, and eager), plain, SDPA and bound times.
+    Returns, per config, the numbers per launch averaged over a bf16 forward's
+    launches at their shapes (whisper's decode shape stands beside them)."""
+    rows, by_path = {}, {}
+    seed = 300
+    for name, shapes in A5_ATTN.items():
+        rows[name] = {}
+        for label, (case, _) in shapes.items():
+            seed += 1
+            rows[name][label] = _fa_at_shape(torch, dev, case, seed)
+        n = sum(per for _, per in shapes.values())
+        agg = {k: sum(rows[name][label][k] * per for label, (_, per) in shapes.items()) / n
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms", "gflop")}
+        t_ops = sum(_bound_ms(c)[2] / PEAK_FLOPS["bfloat16"] * per for c, per in shapes.values())
+        t_bytes = sum(_bound_ms(c)[3] / PEAK_BYTES * per for c, per in shapes.values())
+        by_path[name] = {"max_abs_err": max(r["max_abs_err"] for r in rows[name].values()), **agg,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "launches_per_forward": n, "tflops": agg["gflop"] / agg["ms"],
+                         "shapes": {label: case[:8] for label, (case, _) in shapes.items()}}
+    emit("a5_attention", by_config=rows)
+    bad = {f"{name}/{label}": r for name, shapes in rows.items() for label, r in shapes.items()
+           if not r.pop("ok")}
+    check(not bad, f"flash_attention disagrees with attention_ref at an A.5 shape: {bad}")
+    decode = rows[WHISPER]["decode_cross"]
+    by_path[WHISPER]["decode_cross"] = {k: decode[k] for k in ("ms", "ms_eager", "plain_ms", "bound_ms",
+                                                               "bound_by", "library_ms", "max_abs_err")}
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _a5_batch(torch, dev, cfg, B, S, seed) -> dict:
+    """B x S text tokens, and whisper's (B, 1500, 512) frame or phi-3-vision's
+    (B, 576, 3072) patch embeddings, fp32 N(0, 1), on the card."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device=dev)}
+    if cfg.encoder is not None:
+        batch["enc_frames"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.encoder.n_frames, cfg.d_model), dtype=np.float32), device=dev)
+    if cfg.vision_tokens:
+        batch["img_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.vision_tokens, cfg.d_model), dtype=np.float32), device=dev)
+    return batch
+
+
+# the phases' names of each config
+A5_PHASE = {WHISPER: "whisper", GEMMA12: "gemma3_12b", MIXTRAL: "mixtral", STABLELM: "stablelm",
+            PHI3V: "phi3_vision"}
+
+
+def _a5_expected(cfg) -> dict:
+    """K1-K4 launches of one forward: one K1 a self-attention layer, one more
+    a cross-attention and an encoder layer; three K4 an MoE layer."""
+    n_attn = sum(k in ("attn", "local") for k, _ in cfg.pattern_unit()) * cfg.num_pattern_repeats
+    n_moe = sum(m for _, m in cfg.pattern_unit()) * cfg.num_pattern_repeats
+    n_k1 = 2 * n_attn + cfg.encoder.n_layers if cfg.encoder is not None else n_attn
+    return {"flash_attention": n_k1, "mamba_scan": 0, "mlstm": 0, "gmm": 3 * n_moe}
+
+
+def phase_a5_model(torch, dev, name) -> dict:
+    """One config of A5_PREFILL through the port's entry points: the fp32 kernel
+    against the plain path through the whole model (at the depth that fits),
+    fp32 decode against forward on the same parameters (whisper's with
+    ``encode``'s output as ``enc_out``, its K1 launches counted), the bf16 main
+    path counted from 0 (launches, finiteness, top-1 against the plain path,
+    wall time, tokens/s) and one profiled prefill, then ``launch.serve``.
+    Returns the main path's counts."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, encode, forward, init_cache, init_params
+
+    B, S, fp32_layers, fp32_S = A5_PREFILL[name]
+    cfg = _cfg(name)
+    cfg32 = _cfg(name, "float32")
+    if fp32_layers is not None:
+        cfg32 = dataclasses.replace(cfg32, n_layers=fp32_layers)
+    with torch.inference_mode():
+        # fp32: kernel against plain through the whole model, then decode against forward
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg32, seed=0)
+        batch = _a5_batch(torch, dev, cfg32, B, fp32_S, seed=20)
+        _reset_counts()
+        lk, _ = forward(cfg32, params, batch)
+        torch.cuda.synchronize()
+        counts32 = _counts()
+        lr, _ = forward(cfg32, params, batch, impl="ref")
+        err32, scale32 = (lk - lr).abs().max().item(), lr.abs().max().item()
+        del lk, lr, batch
+        dcfg = cfg32 if cfg32.moe is None else dataclasses.replace(
+            cfg32, moe=dataclasses.replace(cfg32.moe, capacity_factor=8.0))
+        dbatch = _a5_batch(torch, dev, dcfg, 1, A5_DECODE_STEPS, seed=21)
+        dbatch.pop("img_embeds", None)  # decode has no image positions (tests/test_models.py)
+        full, _ = forward(dcfg, params, dbatch)
+        enc_out = encode(dcfg, params, dbatch["enc_frames"]) if dcfg.encoder is not None else None
+        cache = init_cache(dcfg, 1, 2 * A5_DECODE_STEPS)
+        steps = []
+        torch.cuda.synchronize()
+        _reset_counts()
+        for i in range(A5_DECODE_STEPS):
+            lg, cache = decode_step(dcfg, params, cache, dbatch["tokens"][:, i : i + 1], i,
+                                    enc_out=enc_out)
+            steps.append(lg[:, 0])
+        decode_counts = _counts()
+        dec = torch.stack(steps, dim=1)
+        dec_err = (dec - full).abs().max().item()
+        dec_ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2)) and bool(torch.isfinite(dec).all())
+        del params, cache, full, dec, steps, enc_out, dbatch
+        torch.cuda.empty_cache()
+        fp32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # bf16, the serving dtype: the main path, counted from 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_gb = torch.cuda.memory_allocated() / 1e9
+        batch = _a5_batch(torch, dev, cfg, B, S, seed=22)
+        forward(cfg, params, batch)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        lk, aux = forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = _counts()
+        lr, _ = forward(cfg, params, batch, impl="ref")
+        finite = bool(torch.isfinite(lk).all()) and bool(torch.isfinite(aux))
+        shape_ok = tuple(lk.shape) == (B, S, cfg.vocab_size)
+        top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        err16 = (lk - lr).abs().max().item()
+        del lk, lr
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # where the time goes: one profiled bf16 prefill
+        prof = _profile(torch, lambda: forward(cfg, params, batch), top=6, groups=_GROUPS)
+        del params, batch
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    batch_serve, steps_serve = 4, 32
+    tps = serve(name, smoke=False, batch=batch_serve, steps=steps_serve, max_len=128, verbose=False,
+                n_layers=cfg.n_layers if name == MIXTRAL else None)
+    serve_counts = _counts()
+    torch.cuda.empty_cache()
+
+    short = A5_PHASE[name]
+    want32, want = _a5_expected(cfg32), _a5_expected(cfg)
+    # a decode step: K1 in each cross-attention (the self-attention against the
+    # cache is plain, as in the reference), K4 three times an MoE layer
+    n_cross = dcfg.n_layers if dcfg.encoder is not None else 0
+    want_decode = {"flash_attention": n_cross * A5_DECODE_STEPS, "mamba_scan": 0, "mlstm": 0,
+                   "gmm": want32["gmm"] * A5_DECODE_STEPS}
+    want_serve = {"flash_attention": 0, "mamba_scan": 0, "mlstm": 0, "gmm": want["gmm"] * steps_serve}
+    emit(f"{short}_prefill", config=cfg.name, n_layers=cfg.n_layers, B=B, S=S,
+         positions=S + cfg.vision_tokens, encoder_frames=cfg.encoder.n_frames if cfg.encoder else 0,
+         init_s=init_s, param_gb=param_gb, launches=counts, bf16_top1_agreement=top1,
+         bf16_logit_max_abs_err=err16, prefill_s=prefill_s, prefill_tok_per_s=B * S / prefill_s,
+         peak_gb=peak_gb, fp32_n_layers=cfg32.n_layers, fp32_S=fp32_S, fp32_launches=counts32,
+         fp32_logit_max_abs_err=err32, fp32_logit_max_abs=scale32,
+         fp32_tol=f"max|diff| <= {LOGIT_RTOL} * max|plain|", fp32_peak_gb=fp32_peak_gb,
+         prefill_profile=prof)
+    emit(f"{short}_decode", config=cfg.name, n_layers=dcfg.n_layers, steps=A5_DECODE_STEPS,
+         enc_out=cfg.encoder is not None, max_abs_err=dec_err, tol="atol=rtol=2e-2", launches=decode_counts)
+    emit(f"{short}_serve", config=cfg.name, n_layers=cfg.n_layers, batch=batch_serve, steps=steps_serve,
+         tok_per_s=tps, ms_per_step=batch_serve / tps * 1e3, launches=serve_counts,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(counts32 == want32, f"{cfg.name} fp32 forward launched {counts32}, expected {want32}")
+    check(err32 <= LOGIT_RTOL * scale32,
+          f"{cfg.name} fp32 logits kernel vs plain: {err32} > {LOGIT_RTOL} * {scale32}")
+    check(dec_ok, f"{cfg.name} decode_step logits disagree with forward: max abs err {dec_err}")
+    check(decode_counts == want_decode, f"{cfg.name} decode launched {decode_counts}, expected {want_decode}")
+    check(counts == want, f"{cfg.name} bf16 forward launched {counts}, expected {want}")
+    check(finite and shape_ok, f"{cfg.name} bf16 logits are not finite or not (B, S, V)")
+    check(top1 >= TOP1_MIN, f"{cfg.name} bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
+    check(tps > 0 and serve_counts == want_serve,
+          f"{cfg.name} serve: {tps} tok/s, launched {serve_counts}, expected {want_serve}")
+    return counts
 
 
 # ------------------------------ simulator phases -----------------------------

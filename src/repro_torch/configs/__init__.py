@@ -2,7 +2,7 @@
 
 ``get_config(name)`` returns the full production config; ``smoke_config(name)``
 the reduced same-family config for CPU tests. Only the archs whose slice has
-been ported are registered; the others wait for theirs (ROADMAP.md queue A).
+been ported are registered; nemotron-4-340b waits for its own (ROADMAP.md A.5b).
 """
 
 from __future__ import annotations
@@ -10,7 +10,8 @@ from __future__ import annotations
 import importlib
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ["gemma3_1b", "jamba_v01_52b", "xlstm_350m", "granite_moe_3b_a800m"]
+ARCH_IDS = ["gemma3_1b", "jamba_v01_52b", "xlstm_350m", "granite_moe_3b_a800m", "whisper_base",
+            "gemma3_12b", "mixtral_8x7b", "stablelm_3b", "phi3_vision_4_2b"]
 
 # canonical external ids (assignment spelling) -> module names
 ALIASES = {
@@ -18,6 +19,11 @@ ALIASES = {
     "jamba-v0.1-52b": "jamba_v01_52b",
     "xlstm-350m": "xlstm_350m",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "whisper-base": "whisper_base",
+    "gemma3-12b": "gemma3_12b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "stablelm-3b": "stablelm_3b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
 }
 
 

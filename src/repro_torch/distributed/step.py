@@ -114,9 +114,8 @@ def make_serve_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
         raise ValueError(f"make_serve_step: the port's decode runs at impl='auto', not {impl!r}")
 
     def serve_step(params, cache, token, index, enc_out=None):
-        if enc_out is not None:
-            raise NotImplementedError("encoder outputs are not ported yet; ROADMAP.md A.5")
-        return model_decode(cfg, params, cache, token, index, device=_device(params))
+        return model_decode(cfg, params, cache, token, index, enc_out=enc_out,
+                            device=_device(params))
 
     return serve_step
 

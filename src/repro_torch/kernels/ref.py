@@ -69,6 +69,7 @@ def attention_ref(
     mask = _attn_mask(q_pos, k_pos, causal, window)
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
+    del scores  # (B, Hkv, g, Sq, Sk) fp32: 8.6 GB at mixtral's prefill
     # fully-masked rows (can happen with tiny windows) -> zeros, not NaN
     probs = torch.where(mask.any(dim=-1)[:, None], probs, 0.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())

@@ -4,9 +4,14 @@
 config on the card; ``--smoke`` (the default) the reduced one. There is one
 card, so the reference's mesh and sharding arguments are dropped; a config
 too large for it is cut in depth instead, to whole pattern units
-(``--arch jamba-v0.1-52b --full --layers 8``); granite-moe-3b-a800m and
-xlstm-350m fit whole (``--arch granite-moe-3b-a800m --full``). On the CPU:
-``--smoke --device cpu``.
+(``--arch jamba-v0.1-52b --full --layers 8``, ``--arch mixtral-8x7b --full
+--layers 16``); granite-moe-3b-a800m, xlstm-350m, gemma3-12b, stablelm-3b,
+phi-3-vision-4.2b and whisper-base fit whole (``--arch gemma3-12b --full``).
+On the CPU: ``--smoke --device cpu``.
+
+As the reference's ``serve``, it decodes text tokens only: whisper-base's
+decoder runs without ``enc_out`` (its cross-attention sub-layers are skipped)
+and phi-3-vision-4.2b without image positions.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ def serve(
     ``n_layers`` replaces the config's depth and must be a multiple of its
     pattern unit. It is the one-card stand-in for the reference's
     ``production_mesh``, which shards a config that one device cannot hold
-    (jamba-v0.1-52b's 32 layers are ~103 GB in bf16; 8 layers fit one card).
+    (jamba-v0.1-52b's 32 layers are ~103 GB in bf16, mixtral-8x7b's 93.4 GB;
+    8 and 16 layers fit one card).
     """
     if production_mesh:
         raise ValueError("production_mesh: the port serves on one card and has no mesh")

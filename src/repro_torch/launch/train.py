@@ -5,8 +5,10 @@
 the full config on the card. What it exercises: deterministic restart-safe
 data (:class:`~repro_torch.data.SyntheticLM`), the train step at
 ``impl="ref"`` with ``remat="block"``, async checkpoints every
-``ckpt_every`` steps, resume from the newest checkpoint, loss logging. There
-is one card and no mesh: ``production_mesh=True`` raises (ROADMAP.md A.7).
+``ckpt_every`` steps, resume from the newest checkpoint, loss logging. The
+batches carry whisper-base's frame and phi-3-vision-4.2b's patch embeddings
+(``--arch whisper-base --smoke --device cpu``). There is one card and no
+mesh: ``production_mesh=True`` raises (ROADMAP.md A.7).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 * :mod:`repro_torch.models.config`      — ArchConfig (a copy of the reference's)
 * :mod:`repro_torch.models.layers`      — norms, rope, MLPs, embeddings
-* :mod:`repro_torch.models.attention`   — GQA full/sliding-window attention, decode
+* :mod:`repro_torch.models.attention`   — GQA full/sliding-window attention, decode,
+  cross-attention
 * :mod:`repro_torch.models.mamba`       — Mamba selective-SSM mixer, decode state
 * :mod:`repro_torch.models.moe`         — top-k MoE with sorted capacity dispatch
 * :mod:`repro_torch.models.xlstm`       — mLSTM and sLSTM blocks, and the causal conv the mamba mixer shares
@@ -14,6 +15,7 @@ from repro_torch.models.config import ArchConfig, EncoderConfig, MambaConfig, Mo
 from repro_torch.models.transformer import (
     abstract_params,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -30,5 +32,6 @@ __all__ = [
     "loss_fn",
     "init_cache",
     "decode_step",
+    "encode",
     "abstract_params",
 ]

@@ -1,8 +1,8 @@
-"""GQA attention block: full-sequence (prefill) and decode against a KV cache.
+"""GQA attention block: full-sequence (prefill), decode against a KV cache,
+and the encoder-decoder's cross-attention.
 
-Counterpart of ``repro.models.attention`` for self-attention; the
-reference's sharding hints are dropped (they do nothing on one device) and
-cross-attention waits for the encoder-decoder slice (ROADMAP.md A.5).
+Counterpart of ``repro.models.attention``; the reference's sharding hints
+are dropped (they do nothing on one device).
 """
 
 from __future__ import annotations
@@ -16,20 +16,29 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Params, apply_norm, apply_rope, dense, dense_init, norm_init
 
-__all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache"]
+__all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache", "cross_attn_init",
+           "cross_attn_apply"]
 
 
-def attn_init(
-    gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device, lead: Sequence[int] = ()
+def _proj_init(
+    gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device, lead: Sequence[int]
 ) -> Params:
+    """The q, k, v and output projections."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
-    p: Params = {
+    return {
         "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, device, lead=lead),
         "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead=lead),
         "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead=lead),
         "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, device, lead=lead),
     }
+
+
+def attn_init(
+    gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device, lead: Sequence[int] = ()
+) -> Params:
+    hd = cfg.resolved_head_dim
+    p = _proj_init(gen, cfg, dtype, device, lead)
     if cfg.qk_norm:
         p["q_norm"] = norm_init(hd, "rmsnorm", dtype, device, lead)
         p["k_norm"] = norm_init(hd, "rmsnorm", dtype, device, lead)
@@ -128,3 +137,35 @@ def _decode_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ------------------------- cross attention (enc-dec) -----------------------
+
+
+def cross_attn_init(
+    gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, device, lead: Sequence[int] = ()
+) -> Params:
+    """The reference's cross-attention projections: no qk-norm."""
+    return _proj_init(gen, cfg, dtype, device, lead)
+
+
+def cross_attn_apply(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, S, d) decoder states
+    enc: torch.Tensor,  # (B, T, d) encoder output
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """q from the decoder states, k and v from the encoder output; no rope and
+    no qk-norm, every key seen (``causal=False``), as the reference does. On
+    the card this is flash attention with Sq = S against Sk = T (S = 1 in a
+    decode step)."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], enc).reshape(B, T, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], enc).reshape(B, T, cfg.n_kv_heads, hd)
+    out = ops.attention(q, k, v, causal=False, window=None, impl=impl)
+    return dense(p["wo"], out.reshape(B, S, -1))

@@ -9,13 +9,20 @@ this runs a plain loop over them.
 Layer kinds: ATTN and LOCAL_ATTN (norm, attention) and MAMBA (the mixer,
 which carries its own norm), each followed by a dense MLP or an MoE
 sub-layer; MLSTM and SLSTM, self-contained xLSTM blocks with no MLP.
-Encoder and vision inputs raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+
+Modality inputs, as in the reference: an encoder-decoder config (whisper)
+runs a bidirectional encoder over ``batch["enc_frames"]`` (precomputed frame
+embeddings; the conv frontend is a stub) and gives each attention layer a
+cross-attention sub-layer over its output, after self-attention and before
+the MLP; a vision config (phi-3-vision) prepends ``batch["img_embeds"]``
+(precomputed patch embeddings) to the text before the blocks and cuts those
+positions off after the final norm.
 
 Entry points:
 * :func:`init_params`  — random parameters from a seeded ``torch.Generator``
 * :func:`forward`      — full-sequence (prefill / scoring) -> logits, aux
 * :func:`loss_fn`      — next-token cross-entropy, sequence-chunked softmax (training)
+* :func:`encode`       — the encoder's output for ``decode_step``'s cross-attention
 * :func:`init_cache`   — per-layer decode state (KV cache / SSM / xLSTM state), stacked like the params
 * :func:`decode_step`  — one token against the cache (updated in place)
 
@@ -32,7 +39,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import attn_apply, attn_decode, attn_init, init_kv_cache
+from repro_torch.models.attention import (
+    attn_apply,
+    attn_decode,
+    attn_init,
+    cross_attn_apply,
+    cross_attn_init,
+    init_kv_cache,
+)
 from repro_torch.models.config import ArchConfig, LayerKind
 from repro_torch.models.layers import Params, apply_norm, embed_init, mlp_apply, mlp_init, norm_init
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init, mamba_state_init
@@ -54,6 +68,7 @@ __all__ = [
     "abstract_params",
     "forward",
     "loss_fn",
+    "encode",
     "init_cache",
     "decode_step",
     "apply_unit",
@@ -65,13 +80,6 @@ _XLSTM = {
     LayerKind.MLSTM: (mlstm_block_init, mlstm_state_init, mlstm_block_decode),
     LayerKind.SLSTM: (slstm_block_init, slstm_state_init, slstm_block_decode),
 }
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.encoder is not None or cfg.vision_tokens > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder/vision inputs are not ported yet; ROADMAP.md A.5"
-        )
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -100,7 +108,8 @@ def _layer_init(
 ) -> Params:
     """One unit position's params, stacked over the repeats (the reference's
     layout: a mamba layer has no ``norm1``, its mixer carries its own norm;
-    an xLSTM layer is one self-contained ``block``)."""
+    an xLSTM layer is one self-contained ``block``; in an encoder-decoder
+    config an attention layer also has ``cross_norm`` and ``cross``)."""
     dt = _dtype(cfg)
     lead = (cfg.num_pattern_repeats,)
     p: Params = {}
@@ -111,6 +120,9 @@ def _layer_init(
     if kind in _ATTN_KINDS:
         p["norm1"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
         p["attn"] = attn_init(gen, cfg, dt, device, lead)
+        if cfg.encoder is not None:
+            p["cross_norm"] = norm_init(cfg.d_model, cfg.norm, dt, device, lead)
+            p["cross"] = cross_attn_init(gen, cfg, dt, device, lead)
     else:  # LayerKind.MAMBA
         p["mixer"] = mamba_init(gen, cfg, dt, device, lead)
     if is_moe:
@@ -122,8 +134,27 @@ def _layer_init(
     return p
 
 
+def _encoder_init(gen: torch.Generator, cfg: ArchConfig, device: torch.device) -> Params:
+    """The whisper-style encoder: ``encoder.n_layers`` bidirectional attention
+    layers (norm, attention, norm, MLP) stacked over the layers, its final
+    norm and a learned position table (``n_frames``, d) scaled by 0.02."""
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    lead = (cfg.encoder.n_layers,)
+    layers = {
+        "norm1": norm_init(d, cfg.norm, dt, device, lead),
+        "attn": attn_init(gen, cfg, dt, device, lead),
+        "norm2": norm_init(d, cfg.norm, dt, device, lead),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, dt, device, lead),
+    }
+    return {
+        "layers": layers,
+        "final_norm": norm_init(d, cfg.norm, dt, device),
+        "pos": embed_init(gen, cfg.encoder.n_frames, d, dt, device) * 0.02,
+    }
+
+
 def _init(cfg: ArchConfig, gen: torch.Generator, device: torch.device) -> Params:
-    _check_ported(cfg)
     dt = _dtype(cfg)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
@@ -135,6 +166,8 @@ def _init(cfg: ArchConfig, gen: torch.Generator, device: torch.device) -> Params
         f"u{u}": _layer_init(gen, cfg, kind, is_moe, device)
         for u, (kind, is_moe) in enumerate(cfg.pattern_unit())
     }
+    if cfg.encoder is not None:
+        params["encoder"] = _encoder_init(gen, cfg, device)
     return params
 
 
@@ -177,10 +210,68 @@ def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _device_tokens(params: Params, tokens, device: torch.device) -> torch.Tensor:
+def _device_input(
+    params: Params, a, device: torch.device, dtype: torch.dtype = torch.long
+) -> torch.Tensor:
+    """A batch input (token ids, or frame / patch embeddings cast to the
+    activation dtype) as a tensor on ``device``, where the params must lie; a
+    tensor given on another kind of device raises."""
     if params["embed"].device.type != device.type:
         raise ValueError(f"params lie on {params['embed'].device}, not on {device}")
-    return torch.as_tensor(tokens, dtype=torch.long, device=device)
+    if isinstance(a, torch.Tensor) and a.device.type != device.type:
+        raise ValueError(f"a batch input lies on {a.device}, not on {device}")
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+def _inputs(
+    cfg: ArchConfig, params: Params, batch, device: torch.device, impl: str
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """(x entering the blocks, the encoder's output or None, the number of
+    image positions prepended to x)."""
+    x = _embed(cfg, params, _device_input(params, batch["tokens"], device))
+    n_img = 0
+    if cfg.vision_tokens > 0 and "img_embeds" in batch:
+        img = _device_input(params, batch["img_embeds"], device, _dtype(cfg))
+        x = torch.cat([img, x], dim=1)
+        n_img = img.shape[1]
+    enc_out = None
+    if cfg.encoder is not None:
+        frames = _device_input(params, batch["enc_frames"], device, _dtype(cfg))
+        enc_out = _run_encoder(cfg, params, frames, impl)
+    return x, enc_out, n_img
+
+
+def _run_encoder(cfg: ArchConfig, params: Params, frames: torch.Tensor, impl: str) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings: positions added, then
+    per layer norm, bidirectional self-attention (rope at 0..T-1, as the
+    reference's ``attn_apply`` applies it), norm, MLP; then the final norm.
+    It runs outside the decoder's remat units, as the reference's does."""
+    enc = params["encoder"]
+    x = frames + enc["pos"][None, : frames.shape[1]].to(frames.dtype)
+    for r in range(cfg.encoder.n_layers):
+        lp = _index(enc["layers"], r)
+        h = apply_norm(lp["norm1"], x, cfg.norm)
+        x = x + attn_apply(lp["attn"], cfg, h, causal=False, impl=impl)
+        h = apply_norm(lp["norm2"], x, cfg.norm)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+    return apply_norm(enc["final_norm"], x, cfg.norm)
+
+
+def encode(
+    cfg: ArchConfig,
+    params: Params,
+    enc_frames,  # (B, n_frames, d) frame embeddings
+    *,
+    impl: str = "auto",
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """The encoder's output (B, T, d) in the activation dtype, for
+    :func:`decode_step`'s ``enc_out``; ``forward`` and ``loss_fn`` run the
+    same encoder on ``batch["enc_frames"]``."""
+    if cfg.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    dev = resolve_device(device)
+    return _run_encoder(cfg, params, _device_input(params, enc_frames, dev, _dtype(cfg)), impl)
 
 
 def _ffn(
@@ -200,9 +291,13 @@ def apply_unit(
     unit_params: Tuple[Params, ...],  # params per unit position (one repeat)
     x: torch.Tensor,
     *,
+    enc_out: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One pattern unit of layers. Returns (x, the unit's summed MoE aux loss)."""
+    """One pattern unit of layers. Returns (x, the unit's summed MoE aux loss).
+
+    With ``enc_out``, each attention layer that has ``cross`` attends over it
+    after its self-attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _), p in zip(cfg.pattern_unit(), unit_params, strict=True):
         if kind == LayerKind.MLSTM:
@@ -214,6 +309,9 @@ def apply_unit(
         if kind in _ATTN_KINDS:
             h = apply_norm(p["norm1"], x, cfg.norm)
             x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
+            if enc_out is not None and "cross" in p:
+                h = apply_norm(p["cross_norm"], x, cfg.norm)
+                x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl)
         else:
             x = mamba_apply(p["mixer"], cfg, x, impl=impl)
         x, a = _ffn(cfg, p, x, impl)
@@ -230,17 +328,20 @@ def forward(
     impl: str = "auto",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, V) fp32, summed MoE aux loss)."""
-    _check_ported(cfg)
+    """Full-sequence forward. Returns (logits (B, S, V) fp32, summed MoE aux loss).
+
+    ``batch`` holds ``tokens`` (B, S), and ``enc_frames`` (B, T, d) for an
+    encoder-decoder config or ``img_embeds`` (B, P, d) for a vision one; the
+    logits are the text positions' only."""
     dev = resolve_device(device)
-    tokens = _device_tokens(params, batch["tokens"], dev)
-    x, aux = _run_blocks(cfg, params, _embed(cfg, params, tokens), impl)
+    x, enc_out, n_img = _inputs(cfg, params, batch, dev, impl)
+    x, aux = _run_blocks(cfg, params, x, enc_out, impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x[:, n_img:]), aux
 
 
 def _run_blocks(
-    cfg: ArchConfig, params: Params, x: torch.Tensor, impl: str
+    cfg: ArchConfig, params: Params, x: torch.Tensor, enc_out: Optional[torch.Tensor], impl: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every repeat of the pattern unit over ``x``; (x, the summed MoE aux loss).
 
@@ -248,16 +349,20 @@ def _run_blocks(
     under a non-reentrant ``torch.utils.checkpoint``, as the reference wraps
     its scan body in ``jax.checkpoint``: only the unit's input is kept, and
     the backward pass runs the unit again. The values are the same bits.
+    ``enc_out`` is an input of every unit, so its gradient flows through the
+    recomputation too.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_units = len(cfg.pattern_unit())
     for r in range(cfg.num_pattern_repeats):
         unit = tuple(_index(params["blocks"][f"u{u}"], r) for u in range(n_units))
-        records = torch.is_grad_enabled() and any(t.requires_grad for t in leaves((x, unit)))
+        records = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in leaves((x, enc_out, unit)))
         if cfg.remat == "block" and records:
-            x, a = checkpoint(apply_unit, cfg, unit, x, impl=impl, use_reentrant=False)
+            x, a = checkpoint(apply_unit, cfg, unit, x, enc_out=enc_out, impl=impl,
+                              use_reentrant=False)
         else:
-            x, a = apply_unit(cfg, unit, x, impl=impl)
+            x, a = apply_unit(cfg, unit, x, enc_out=enc_out, impl=impl)
         aux = aux + a
     return x, aux
 
@@ -277,14 +382,14 @@ def loss_fn(
     (one chunk of S where that does not divide S), as the reference's
     ``lax.map`` does: the logits of a chunk are fp32 (:func:`_logits`), each
     chunk gives ``sum(logsumexp - gold)``, the chunks' sums are summed, then
-    divided by B*S.
+    divided by B*S. S counts the text positions only: image positions are cut
+    off after the final norm, as in :func:`forward`.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
-    tokens = _device_tokens(params, batch["tokens"], dev)
-    labels = _device_tokens(params, batch["labels"], dev)
-    x, aux = _run_blocks(cfg, params, _embed(cfg, params, tokens), impl)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    x, enc_out, n_img = _inputs(cfg, params, batch, dev, impl)
+    labels = _device_input(params, batch["labels"], dev)
+    x, aux = _run_blocks(cfg, params, x, enc_out, impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)[:, n_img:]
     B, S, _ = x.shape
     chunk = min(loss_chunk, S)
     if S % chunk:
@@ -308,8 +413,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device: DeviceLike 
     ``min(max_len, window)`` slots. Mamba layers get their fp32 SSM state
     ``h`` (B, Di, N) and conv window (B, d_conv - 1, Di); mLSTM layers C, n,
     m and sLSTM layers c, n, m, h in fp32, each with its conv window.
+    Cross-attention keeps no cache: it reads ``enc_out`` whole each step.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
     lead = (cfg.num_pattern_repeats,)
     cache: Params = {}
@@ -334,6 +439,7 @@ def decode_step(
     token,  # (B, 1) integer token ids
     index: int,  # current position
     *,
+    enc_out: Optional[torch.Tensor] = None,  # (B, T, d) from :func:`encode`
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step; returns (logits (B, 1, V) fp32, the cache updated in place).
@@ -342,12 +448,15 @@ def decode_step(
     steps are plain torch, as in the reference, which reaches no kernel here
     either. The MoE runs its dispatch over the batch's B tokens and its expert
     products through ``ops.gmm`` at ``impl="auto"``: on the card, K4 at one
-    row per expert.
+    row per expert. With ``enc_out``, every attention layer that has
+    ``cross`` attends its one token over it at ``impl="auto"``: on the card,
+    flash attention at Sq = 1.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
     index = int(index)
-    x = _embed(cfg, params, _device_tokens(params, token, dev))
+    if enc_out is not None and enc_out.device.type != dev.type:
+        raise ValueError(f"enc_out lies on {enc_out.device}, not on {dev}")
+    x = _embed(cfg, params, _device_input(params, token, dev))
     unit = cfg.pattern_unit()
     for r in range(cfg.num_pattern_repeats):
         for u, (kind, _) in enumerate(unit):
@@ -366,6 +475,9 @@ def decode_step(
                 h = apply_norm(p["norm1"], x, cfg.norm)
                 a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
                 x = x + a
+                if enc_out is not None and "cross" in p:
+                    h = apply_norm(p["cross_norm"], x, cfg.norm)
+                    x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl="auto")
             else:
                 x, _ = mamba_decode(p["mixer"], cfg, x, st)
             x, _ = _ffn(cfg, p, x, "auto")

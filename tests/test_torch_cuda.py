@@ -124,6 +124,36 @@ def test_bf16_route_matches_plain_version(card, case):
     assert _row_rel(out, q, k, v, **_kw(case)) <= ROW_REL_TOL
 
 
+# the shapes the remaining one-card configs give the kernel: whisper-base's
+# cross-attention (448 decoder positions against 1,500 frames, non-causal) and
+# its decode step (1 against 1,500), its encoder (1,500 against 1,500,
+# non-causal, ragged against every tile); gemma3-12b's local layer (GQA 2 in
+# the D 256 tile, window 1,024); phi-3-vision-4.2b's 576 + 2,048 positions at
+# D 96 (a ragged last tile); mixtral-8x7b's window of 4,096 at S 8,192
+A5_CASES = {
+    "whisper_cross": (8, 448, 1500, 8, 8, 64, False, None, None, 0),
+    "whisper_decode_cross": (8, 1, 1500, 8, 8, 64, False, None, None, 0),
+    "whisper_encoder": (8, 1500, 1500, 8, 8, 64, False, None, None, 0),
+    "gemma3_12b_local": (2, 2048, 2048, 16, 8, 256, True, 1024, None, 0),
+    "phi3_vision": (2, 2624, 2624, 32, 32, 96, True, None, None, 0),
+    "mixtral_window": (1, 8192, 8192, 32, 8, 128, True, 4096, None, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(A5_CASES))
+def test_kernel_at_the_a5_configs_shapes(card, name, dtype):
+    case = A5_CASES[name] + (dtype,)
+    q, k, v = _inputs(card, case, seed=9)
+    out = fa.flash_attention(q, k, v, **_kw(case))
+    ref = attention_ref(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == "bfloat16":
+        del ref
+        assert _row_rel(out, q, k, v, **_kw(case)) <= ROW_REL_TOL
+
+
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_bf16_route_reads_strided_rows(card, D):
     """bf16 q, k, v as views of one fused projection: TMA reads the strided rows."""
@@ -628,13 +658,17 @@ def test_gmm_kernel_poisons_rows_of_a_bad_group_id(card):
 # the wgmma route (bf16, row blocks of more than 16 rows) at the paths' prefill
 # shapes as (groups, rows per group, K, N): granite's up/gate and down, jamba's
 # up/gate and down; then a persistent-schedule case, 50 x 3 x 3 = 450 tiles of
-# 128 x 256, 3.4 waves of 132 SMs, with K and N multiples of no tile
+# 128 x 256, 3.4 waves of 132 SMs, with K and N multiples of no tile; then
+# mixtral-8x7b's up/gate and down at its prefill (B 1 x S 8192, top-2 of 8
+# experts: 2,560 rows an expert; N 14,336 is 56 column tiles of 256)
 WGMMA_SHAPES = [
     (40, 1024, 1536, 512),
     (40, 1024, 512, 1536),
     (16, 640, 4096, 14336),
     (16, 640, 14336, 4096),
     (50, 384, 136, 520),
+    (8, 2560, 4096, 14336),
+    (8, 2560, 14336, 4096),
 ]
 
 
@@ -650,7 +684,7 @@ def _card_gmm_inputs(card, G, C, K, N, seed):
 
 @pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=["granite_up", "granite_down", "jamba_up", "jamba_down",
-                                                    "persistent"])
+                                                    "persistent", "mixtral_up", "mixtral_down"])
 def test_gmm_wgmma_route_matches_plain_version(card, shape, out_dtype):
     G, C, K, N = shape
     lhs, rhs = _card_gmm_inputs(card, G, C, K, N, seed=G + K)
@@ -699,6 +733,19 @@ def test_gmm_decode_takes_the_small_tile(card):
     assert gk.plan(lhs, rhs, ids).route == "mma_sync"
     torch.testing.assert_close(gk.gmm(lhs, rhs, ids).float(), gmm_ref(lhs, rhs, [1] * 40).float(),
                                atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 4096, 14336), (8, 2, 14336, 4096)], ids=["up", "down"])
+def test_gmm_mixtral_decode_takes_the_small_tile(card, shape):
+    """mixtral-8x7b's decode at batch 4 (top-2 of 8: 2 rows an expert)."""
+    G, C, K, N = shape
+    lhs, rhs = _card_gmm_inputs(card, G, C, K, N, seed=K)
+    ids = torch.arange(G, dtype=torch.int32, device=card)
+    assert gk.plan(lhs, rhs, ids).route == "mma_sync"
+    for out_dtype in (torch.bfloat16, torch.float32):
+        tol = GMM_TOL[str(out_dtype).removeprefix("torch.")]
+        torch.testing.assert_close(gk.gmm(lhs, rhs, ids, out_dtype=out_dtype).float(),
+                                   gmm_ref(lhs, rhs, [C] * G, out_dtype=out_dtype).float(), atol=tol, rtol=tol)
 
 
 def test_gmm_auto_on_card_launches_the_kernel(card):
@@ -1046,3 +1093,42 @@ def test_train_bf16_step_gives_the_same_bits_twice(card):
     for x, y in zip(leaves(a[0]) + a[1].m + a[1].v, leaves(b[0]) + b[1].m + b[1].v, strict=True):
         assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
                            y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+# -------------------------- the encoder-decoder ------------------------------
+
+
+def test_whisper_decode_with_enc_out_on_the_card_matches_the_cpu(card):
+    """whisper-base's smoke config in fp32, with one head of 64 (the kernel
+    takes head dims from 64; the smoke config's two heads are of 32): the
+    encoder's output and 8 decode steps with it (K1 at Sq = 1 in every
+    cross-attention) on the card, against the same on the CPU (plain
+    attention), at the fp32 logits bar."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, encode, init_cache, init_params
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = dataclasses.replace(smoke_config("whisper_base"), n_heads=1, n_kv_heads=1, dtype="float32",
+                              param_dtype="float32")
+    assert cfg.resolved_head_dim == 64
+    params = init_params(cfg, seed=0, device="cpu")
+    on_card = unflatten(params, [t.to(card) for t in leaves(params)])
+    rng = np.random.default_rng(10)
+    frames = rng.standard_normal((2, cfg.encoder.n_frames, cfg.d_model), dtype=np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 8))
+    enc_cpu = encode(cfg, params, frames, device="cpu")
+    enc_card = encode(cfg, on_card, torch.from_numpy(frames).to(card))
+    assert enc_card.is_cuda
+    torch.testing.assert_close(enc_card.cpu(), enc_cpu, atol=1e-5, rtol=1e-5)
+    cache_cpu, cache_card = init_cache(cfg, 2, 8, device="cpu"), init_cache(cfg, 2, 8)
+    before = fa.LAUNCHES
+    for i in range(8):
+        tok = tokens[:, i : i + 1]
+        want, cache_cpu = decode_step(cfg, params, cache_cpu, tok, i, enc_out=enc_cpu, device="cpu")
+        got, cache_card = decode_step(cfg, on_card, cache_card, torch.from_numpy(tok).to(card), i,
+                                      enc_out=enc_card)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale, i
+    assert fa.LAUNCHES == before + 8 * cfg.n_layers

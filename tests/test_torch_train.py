@@ -1,10 +1,13 @@
 """The port's ``loss_fn`` and its gradients against the JAX package's, on the CPU.
 
-For each of the four ported archs at smoke size (gemma3-1b and
-granite-moe-3b-a800m here, jamba-v0.1-52b and xlstm-350m in
-tests/test_torch_train_hybrid.py; gemma cut to one 6-layer unit), both sides run the same
+For each ported arch at smoke size (gemma3-1b, granite-moe-3b-a800m,
+whisper-base and phi-3-vision-4.2b here; jamba-v0.1-52b, xlstm-350m,
+gemma3-12b, mixtral-8x7b and stablelm-3b in tests/test_torch_train_hybrid.py;
+gemma3-1b cut to one 6-layer unit), both sides run the same
 parameters (the JAX package's ``init_params`` tree, converted with
-``params_from_jax``) on the same numpy-made batch, at ``impl="ref"`` (the
+``params_from_jax``) on the same numpy-made batch (with whisper's frame and
+phi-3-vision's patch embeddings, whose gradients flow through the encoder
+and cross-attention, or the image positions), at ``impl="ref"`` (the
 plain versions, as the reference trains). The JAX side is
 ``jax.jit(jax.value_and_grad(loss_fn))``; the port's is autograd through
 its plain versions, under ``remat="block"`` as the trainer runs it (the
@@ -36,8 +39,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.tree import flatten_with_paths, path_key
 
 # this file's archs; tests/test_torch_train_hybrid.py runs the same tests on
-# jamba and xlstm (the slowest references to compile), on another worker
-ARCHS = ["gemma3_1b", "granite_moe_3b_a800m"]
+# the others, on another worker
+ARCHS = ["gemma3_1b", "granite_moe_3b_a800m", "whisper_base", "phi3_vision_4_2b"]
 B, S = 2, 64
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
@@ -61,9 +64,18 @@ def _cfgs(arch, dtype):
             dataclasses.replace(smoke_config(arch), remat="block", **kw))
 
 
-def _batch(vocab, seed=0):
-    toks = np.random.default_rng(seed).integers(0, vocab, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+def _batch(cfg, seed=0):
+    """S text tokens and their labels, and the config's frame or patch embeddings."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.encoder is not None:
+        batch["enc_frames"] = rng.standard_normal((B, cfg.encoder.n_frames, cfg.d_model),
+                                                  dtype=np.float32)
+    if cfg.vision_tokens:
+        batch["img_embeds"] = rng.standard_normal((B, cfg.vision_tokens, cfg.d_model),
+                                                  dtype=np.float32)
+    return batch
 
 
 def _jax_batch(batch):
@@ -88,7 +100,7 @@ def reference(arch):
     jcfg16, cfg16 = _cfgs(arch, "bfloat16")
     jparams = jax_init_params(jcfg, seed=0)
     jparams16 = _cast(jparams, jcfg16)
-    batch = _batch(cfg.vocab_size)
+    batch = _batch(cfg)
 
     def reference(p, p16, b):
         vg = jax.value_and_grad(
@@ -164,15 +176,10 @@ def test_remat_block_recomputes_under_autograd_only(monkeypatch):
     cfg = dataclasses.replace(smoke_config("granite_moe_3b_a800m"), dtype="float32",
                               param_dtype="float32", remat="block")
     params = T.init_params(cfg, seed=0, device="cpu")
-    batch = _batch(cfg.vocab_size)
+    batch = _batch(cfg)
     with torch.no_grad():
         loss_fn(cfg, params, batch, impl="ref", device="cpu")
     assert calls == []
     _value_and_grad(cfg, params, batch, "ref")
     assert len(calls) == cfg.num_pattern_repeats
 
-
-def test_loss_fn_refuses_encoder_and_vision_inputs():
-    cfg = dataclasses.replace(smoke_config("gemma3_1b"), vision_tokens=4)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        loss_fn(cfg, {}, _batch(cfg.vocab_size), device="cpu")

@@ -1,8 +1,9 @@
-"""tests/test_torch_train.py's ``loss_fn`` checks on jamba-v0.1-52b and xlstm-350m.
+"""tests/test_torch_train.py's ``loss_fn`` checks on jamba-v0.1-52b, xlstm-350m,
+gemma3-12b, mixtral-8x7b and stablelm-3b.
 
-Their references take the longest to compile, so they run from this file,
-which the test workers take apart from the first; the tests, bars and
-reference are that file's.
+They run from this file, which the test workers take apart from the first
+(jamba's and xlstm's references take the longest to compile); the tests,
+bars and reference are that file's.
 """
 
 import pytest
@@ -15,7 +16,7 @@ from test_torch_train import (  # noqa: F401  (collected here with this file's f
     test_remat_block_gives_the_bits_of_none,
 )
 
-ARCHS = ["jamba_v01_52b", "xlstm_350m"]
+ARCHS = ["jamba_v01_52b", "xlstm_350m", "gemma3_12b", "mixtral_8x7b", "stablelm_3b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
