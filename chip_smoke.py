@@ -88,45 +88,60 @@ products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
               K4's launches in those steps.
 22. granite_serve — ``serve("granite_moe_3b_a800m", smoke=False, ...)``.
 
-Then the remaining one-card configs, at their published widths: whisper-base
-(6 + 6 layers; the encoder over precomputed frame embeddings and a
-cross-attention in each decoder layer), gemma3-12b (48 layers), mixtral-8x7b
-cut to 16 of its 32 one-layer units (46.9 GB in bf16), stablelm-3b (32) and
-phi-3-vision-4.2b (32; 576 patch embeddings before the text):
+Then the logits product that every served path ends in (ROADMAP.md A.P1):
 
-23. a5_attention — flash attention against its plain version (both bf16
+23. logits_product — the port's product (bf16 operands, fp32 out, no fp32
+              copy of the unembedding, d_model summed 2,048 columns at a
+              time) against the fp32 upcast it replaced, on the same operands
+              at gemma3-1b's prefill shape and nemotron-4-340b's: the largest
+              difference (1e-5 * max), both times, the memory each takes
+              beyond its operands; the errors of both and of one GEMM over all
+              of d_model against an fp64 product.
+
+Then the remaining configs, at their published widths: whisper-base (6 + 6
+layers; the encoder over precomputed frame embeddings and a cross-attention
+in each decoder layer), gemma3-12b (48 layers), mixtral-8x7b cut to 16 of its
+32 one-layer units (46.9 GB in bf16), stablelm-3b (32), phi-3-vision-4.2b
+(32; 576 patch embeddings before the text) and nemotron-4-340b cut to 6 of
+its 96 one-layer units (60.3 GB in bf16):
+
+24. a5_attention — flash attention against its plain version (both bf16
               bars) at every shape these paths give it: whisper's encoder
               (non-causal, 1,500 frames), decoder (causal, 448), cross (448
               against 1,500) and decode cross (1 against 1,500); gemma3-12b's
               local (window 1,024) and global layers (16/8 heads of 256);
               mixtral's window (4,096 at S 8,192); stablelm's D 80 and
-              phi-3-vision's D 96 over 2,624 positions; per shape the kernel
-              (CUDA graph, and eager), plain, SDPA and bound times.
-24-28. {whisper, gemma3_12b, mixtral, stablelm, phi3_vision}_{prefill,
-              decode, serve} — per config: the fp32 kernel against the plain
-              path through the whole model (logits 1e-5·max; mixtral at 8
-              layers and S 6,144), fp32 ``decode_step`` x16 against
-              ``forward`` on the same parameters (2e-2; whisper's with
-              ``encode``'s output as ``enc_out``, 6 K1 a step), the bf16 main
-              path at A5_PREFILL's shape counted from 0 (K1 18 whisper, 48
+              phi-3-vision's D 96 over 2,624 positions; nemotron's GQA 96/8
+              at D 192 over 4,096; per shape the kernel (CUDA graph, and
+              eager), plain, SDPA and bound times.
+25-30. {whisper, gemma3_12b, mixtral, stablelm, phi3_vision,
+              nemotron}_{prefill, decode, serve} — per config: the fp32 kernel
+              against the plain path through the whole model (logits
+              1e-5·max; mixtral at 8 layers and S 6,144, nemotron at 1 layer
+              and S 2,048), fp32 ``decode_step`` x16 against ``forward`` on
+              the same parameters (2e-2; whisper's with ``encode``'s output
+              as ``enc_out``, 6 K1 a step), the bf16 main path at
+              A5_PREFILL's shape counted from 0 (K1 18 whisper, 48
               gemma3-12b, 16 mixtral with 48 K4, 32 stablelm, 32
-              phi-3-vision; finite logits of the text positions, top-1 against
-              the plain path >= 0.99, wall time, tokens/s, peak GB; one
-              prefill under torch.profiler: device time by kernel, the idle
-              share), then ``serve`` (batch 4, 32 steps; whisper decodes
-              without ``enc_out``, as the reference's ``serve`` does).
+              phi-3-vision, 6 nemotron at B 1 x S 4,096; finite logits of the
+              text positions, wall time, tokens/s, peak GB, nemotron's at
+              most 74), top-1 against the plain path >= 0.99 (nemotron's at S
+              2,048), one prefill under torch.profiler (device time by
+              kernel, the idle share), then ``serve`` (batch 4, 32 steps;
+              whisper decodes without ``enc_out``, as the reference's
+              ``serve`` does).
 
 Then the batched MIG simulator (``repro_torch.core.batched``), which runs no
 kernel of the four (its step is batched torch ops):
 
-29. sim_parity — ``simulate_batch`` on the card for the eight rows of
+31. sim_parity — ``simulate_batch`` on the card for the eight rows of
               tests/test_batched.py's agreement matrix (6 seeds a row, load
               0.2; rows of one policy kind and mode in one batch), held to
               the port's CPU run on the same inputs and to the JAX
               reference's aggregates in tests/data/torch_sim_golden.json
               (integers exact; the bars of tests/test_torch_sim.py); the
               largest difference of each aggregate per row.
-30. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
+32. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
               (a) 2048 rollouts at load 1.0, the width of the RL training run
               of benchmarks/baselines/rl_batched.json; (b) 256 at load 12.0,
               the headline point of benchmarks/baselines/batched_agreement.json.
@@ -143,7 +158,7 @@ Then the on-device DQN trainer (``repro_torch.core.rl``), whose step is the
 simulator's and whose learner is an MLP of three matmuls (no kernel of the
 four):
 
-31. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
+33. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
               runs of the port: the checked-in parameters
               (benchmarks/baselines/rl_dqn_params.npz) give rl_batched.json's
               params_probe (seed 123, 16 greedy actions); argmax takes the
@@ -157,7 +172,7 @@ four):
               parameters 1e-5); ``BatchedRepartitionEnv`` through the golden
               file's scripted day at B 8 (observations bit for bit, rewards,
               flags, results).
-32. rl_train — ``train_dqn_batched`` at the baseline's configuration (B 64,
+34. rl_train — ``train_dqn_batched`` at the baseline's configuration (B 64,
               104 decisions of 15 minutes, n-step 8, the four training
               scenarios at loads 0.8-1.2) for 2 rounds: wall time of each
               round, env-steps/s, updates, the final epsilon, the finite
@@ -172,7 +187,7 @@ simulator, the four schedulers, the policy registry and the forecast
 controller (float64 host code), with the greedy DQN's Q network on the card
 (no kernel of the four):
 
-33. eval_replay — every cell of the four checked-in sweep baselines
+35. eval_replay — every cell of the four checked-in sweep baselines
               (benchmarks/baselines/{smoke_sweep, scenario_matrix,
               repartition_policies, repartition_modes}.jsonl, 464 rows)
               through the port's ``run_cell``; per file the rows, the rows
@@ -181,7 +196,7 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               the seconds; the forecaster's fitted coefficients against the
               reference's (tests/data/torch_eval_forecast_golden.json). Any
               row off fails.
-34. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
+36. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
               port's learner on the card and raced against the forecast
               controller on the six families at scale 0.1, as
               scripts/train_rl_baseline.py's check does: each row and
@@ -189,24 +204,32 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               wall time, every decision whose action differs from the port's
               CPU run with its Q gap, and over one profiled day the Q
               network's launches and device time per decision.
-35. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
+37. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
               NoMIG, static config 3, DayNight, the queue heuristic and the
               checked-in npz as the registry's ``"dqn"`` (event cadence): ET
               and the improvement over NoMIG per model, measured, not gated.
+38. serving_day — the multi-tenant-serving scenario (tenants of the
+              configs above mapped to MIG slice classes, latency SLOs over the
+              diurnal day): the balanced mix, seed 11, static config 3, a
+              whole day at load 1.0, once with each of EDF-FS, EDF-SS, LLF
+              and LALF through ``make_scenario_cell`` and ``run_cell``, each
+              result against the reference's in
+              tests/data/torch_serving_golden.json (integers, tenant counts,
+              trace and histogram exact, floats within rtol 1e-9).
 
 Then the training path (``repro_torch.launch.train``: ``loss_fn`` with the
 chunked softmax, ``make_train_step``, ``SyntheticLM``, the checkpoint store),
 which trains through autograd on the plain versions at ``impl="ref"``, as the
 reference does (the four kernels are forward-only and stay off it):
 
-36. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
+39. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
               configs in fp32 (granite with 2 microbatches), one
               ``make_train_step`` step from the same parameters and non-zero
               optimiser state on the same ``SyntheticLM`` batch, on the
               card and on the CPU: loss and grad norm within 1e-5 relative,
               every parameter within 1e-5 of its leaf's largest, m and v
               within 1e-4; the worst leaf of each arch.
-37. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
+40. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
               (global batch 8, sequence 256, bf16; 0.9998 B parameters) for 6
               steps with a checkpoint every 3 into a temporary directory
               (its free disk first); then step 6 deleted and ``train`` again,
@@ -373,30 +396,46 @@ GEMMA12 = "gemma3_12b"
 MIXTRAL = "mixtral_8x7b"
 STABLELM = "stablelm_3b"
 PHI3V = "phi3_vision_4_2b"
+NEMOTRON = "nemotron_4_340b"
 # mixtral-8x7b cut to 16 of its 32 one-layer units (46.9 GB in bf16: one stage
 # of a two-stage pipeline); its fp32 check at 8 (47.5 GB)
 MIXTRAL_LAYERS = 16
+# nemotron-4-340b cut to 6 of its 96 one-layer units: 60.3 GB in bf16, the
+# untied 256,000 x 18,432 embedding and unembedding 18.9 GB of it; a 7th layer
+# (6.9 GB) would leave less than 6 GB free at the bf16 prefill's peak
+NEMOTRON_LAYERS = 6
+A5_LAYERS = {MIXTRAL: MIXTRAL_LAYERS, NEMOTRON: NEMOTRON_LAYERS}
 # per config: the bf16 prefill's batch and text length, the fp32 check's depth
 # (None: the config's) and text length. whisper: 8 clips of 30 s (1,500 encoder
 # frames each) against Whisper's 448-token decoder context; phi-3-vision: 576
 # patch embeddings before 2,048 text tokens; mixtral: one sequence past its
 # 4,096 window (at B 2 x S 2,048 the window would not mask), its fp32 check at
 # S 6,144, where the window masks the last 2,048 rows' first keys and the plain
-# attention's (1, 32, 6144, 6144) fp32 scores leave room beside 47.5 GB
+# attention's (1, 32, 6144, 6144) fp32 scores leave room beside 47.5 GB;
+# nemotron: one sequence of 4,096 (its fp32 logits 4.2 GB), its fp32 check at
+# one layer (51.6 GB of fp32 weights) and S 2,048
 A5_PREFILL = {
     WHISPER: (8, 448, None, 448),
     GEMMA12: (PREFILL_B, PREFILL_S, None, PREFILL_S),
     MIXTRAL: (1, 8192, 8, 6144),
     STABLELM: (PREFILL_B, PREFILL_S, None, PREFILL_S),
     PHI3V: (PREFILL_B, PREFILL_S, None, PREFILL_S),
+    NEMOTRON: (1, 4096, 1, 2048),
 }
+# the bf16 top-1 comparison's text length where it is not the main path's:
+# nemotron's plain attention at S 4,096 holds 96 heads of 4,096^2 fp32 scores
+# and their softmax (12.9 GB) beside 60.3 GB of weights
+A5_TOP1_S = {NEMOTRON: 2048}
+# the most memory a phase may hold (GB of the card's 80): 6 GB left free
+A5_PEAK_GB = {NEMOTRON: 74.0}
 # flash attention at each shape these configs' main paths give it, bf16, and its
 # launches a bf16 forward: whisper's encoder (non-causal, 1,500 frames, ragged
 # against every tile), decoder self-attention (causal, 448) and cross-attention
 # (non-causal, 448 against 1,500; in a decode step with ``enc_out``, 1 against
 # 1,500); gemma3-12b's local (window 1,024) and global layers (GQA 2 in the
 # D 256 tile); mixtral's window of 4,096 at S 8,192; stablelm's D 80 and
-# phi-3-vision's D 96 over 576 + 2,048 positions (a ragged last tile)
+# phi-3-vision's D 96 over 576 + 2,048 positions (a ragged last tile);
+# nemotron's GQA 96/8 at D 192 (the bf16 D 256 tile) over 4,096
 A5_ATTN = {
     WHISPER: {"encoder": ((8, 1500, 1500, 8, 8, 64, False, None, None, 0, "bfloat16"), 6),
               "self": ((8, 448, 448, 8, 8, 64, True, None, None, 0, "bfloat16"), 6),
@@ -407,11 +446,21 @@ A5_ATTN = {
     MIXTRAL: {"window": ((1, 8192, 8192, 32, 8, 128, True, 4096, None, 0, "bfloat16"), MIXTRAL_LAYERS)},
     STABLELM: {"causal": ((PREFILL_B, PREFILL_S, PREFILL_S, 32, 32, 80, True, None, None, 0, "bfloat16"), 32)},
     PHI3V: {"causal": ((PREFILL_B, 2624, 2624, 32, 32, 96, True, None, None, 0, "bfloat16"), 32)},
+    NEMOTRON: {"causal": ((1, 4096, 4096, 96, 8, 192, True, None, None, 0, "bfloat16"),
+                          NEMOTRON_LAYERS)},
 }
 # the fp32 check at the full depth where it fits (gemma3-12b: 47 GB), else the
 # depth above; the decode check (fp32, 16 steps against forward) on the same
 # parameters
 A5_DECODE_STEPS = 16
+
+# the logits product (ROADMAP.md A.P1) at gemma3-1b's prefill (B 2 x S 2,048
+# rows against its tied 262,144 x 1,152 embedding) and nemotron's (1 x 4,096
+# rows against its 256,000 x 18,432 unembedding): rows, vocabulary, d_model
+LOGITS_SHAPES = {"gemma3_1b": (PREFILL_B * PREFILL_S, 262144, 1152),
+                 NEMOTRON: (4096, 256000, 18432)}
+LOGITS_RTOL = 1e-5  # the port's product against the upcast, of max |upcast|
+LOGITS_EXACT_V = 32768  # vocabulary rows of the fp64 product the errors are read against
 
 # the batched MIG simulator: tests/test_batched.py's agreement matrix
 # (scenario, policy, repartition mode), 6 seeds a row at load 0.2, as
@@ -470,6 +519,13 @@ EVAL_RTOL = 1e-9
 EVAL_FORECAST_GOLDEN = ROOT / "tests" / "data" / "torch_eval_forecast_golden.json"
 EVAL_RACE_SCALE = 0.1  # rl_batched.json's scale
 EVAL_TABLE3_SCALE = 1.0
+# the multi-tenant-serving day (tests/test_torch_serving.py, the cell of the
+# reference's tests/test_serving.py::_serving_cell at a whole day, load 1.0),
+# once per scheduler, against the reference's results in the golden file
+SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
+SERVING_CELL = {"experiment": "t", "group": "g", "seed": 11, "scenario": "multi-tenant-serving",
+                "scenario_kwargs": {"horizon_min": 1440.0, "load_scale": 1.0},
+                "policy": "static", "policy_kwargs": {"config_id": 3}}
 
 # the training path: card against CPU at each ported arch's smoke config in
 # fp32 (granite with 2 microbatches), one step from a non-zero optimiser state
@@ -532,6 +588,7 @@ def main() -> int:
     granite = phase_granite_prefill(torch, dev)
     phase_granite_decode(torch, dev)
     phase_granite_serve(torch)
+    phase_logits_product(torch, dev)
     a5_fa = phase_a5_attention(torch, dev)
     a5 = {name: phase_a5_model(torch, dev, name) for name in A5_PREFILL}
     phase_sim_parity(torch)
@@ -541,6 +598,7 @@ def main() -> int:
     phase_eval_replay(torch)
     phase_eval_race(torch)
     phase_eval_table3(torch)
+    phase_serving_day(torch)
     phase_train_parity(torch)
     phase_train(torch)
     ms_row["launches"] = launches["mamba_scan"]
@@ -1193,15 +1251,15 @@ def phase_jamba_kernels(torch, dev):
 
 
 def _cfg(name, dtype="bfloat16", **moe):
-    """A path's config in ``dtype``, jamba cut to JAMBA_LAYERS and mixtral to
-    MIXTRAL_LAYERS, with MoE overrides."""
+    """A path's config in ``dtype``, jamba cut to JAMBA_LAYERS, mixtral and
+    nemotron to their A5_LAYERS, with MoE overrides."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype)
     if name == JAMBA:
         cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
-    if name == MIXTRAL:
-        cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
+    if name in A5_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=A5_LAYERS[name])
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     return cfg
@@ -1959,6 +2017,79 @@ def phase_granite_serve(torch) -> None:
     check(counts["gmm"] == 3 * n_layers * steps, f"granite serve launched {counts}")
 
 
+# ------------------------------ the logits product ---------------------------
+
+
+def phase_logits_product(torch, dev) -> None:
+    """The port's logits product (``models.transformer._logits`` on bf16
+    operands with autograd off: fp32 out, the d_model columns summed
+    ``LOGITS_K_CHUNK`` at a time) against the upcast it replaced (both
+    operands copied to fp32, one fp32 GEMM, TF32 off) on the same operands at
+    each LOGITS_SHAPES shape: the largest difference (bar LOGITS_RTOL of max
+    |upcast|), both times and the memory each takes beyond its operands (the
+    port's must hold no fp32 copy of the unembedding); and against an fp64
+    product over the first LOGITS_EXACT_V vocabulary rows, the errors of both
+    and of one GEMM over all of d_model (the control for the chunking)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    rows = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(400)
+    for name, (M, V, D) in LOGITS_SHAPES.items():
+        cfg = get_config(name)  # its tie_embeddings and logit_softcap (none) are read
+        x = torch.randn(M, D, device=dev, generator=gen).bfloat16()
+        u = torch.randn(V, D, device=dev, generator=gen).bfloat16()
+        params = {"embed" if cfg.tie_embeddings else "unembed": u}
+        port = lambda: T._logits(cfg, params, x)  # noqa: E731
+        upcast = lambda: torch.matmul(x.float(), u.float().t())  # noqa: E731
+        one_gemm = lambda: torch.mm(x, u.t(), out_dtype=torch.float32)  # noqa: E731
+        with torch.inference_mode():
+            out, extra_gb = {}, {}
+            for label, fn in (("port", port), ("upcast", upcast)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out[label] = fn()
+                torch.cuda.synchronize()
+                extra_gb[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            err = (out["port"] - out["upcast"]).abs().max().item()
+            scale = out["upcast"].abs().max().item()
+            out["one_gemm"] = one_gemm()
+            exact = x.double() @ u[:LOGITS_EXACT_V].double().t()
+            exact_max = exact.abs().max().item()
+            errs = {k: (y[:, :LOGITS_EXACT_V].double() - exact).abs().max().item() / exact_max
+                    for k, y in out.items()}
+            del out, exact
+            torch.cuda.empty_cache()
+            heavy = D > 4096  # the upcast's fp32 GEMM on the CUDA cores: ~0.7 s at nemotron's shape
+            ms = _cuda_ms(torch, port, iters=10, warmup=2)
+            rows[name] = {
+                "rows": M, "vocab": V, "d_model": D, "chunks": -(-D // T.LOGITS_K_CHUNK),
+                "max_abs_diff": err, "max_abs_upcast": scale, "rel_diff": err / scale,
+                "tol": f"max|port - upcast| <= {LOGITS_RTOL} * max|upcast|",
+                "rel_err_vs_fp64": errs, "ms": ms,
+                "upcast_ms": _cuda_ms(torch, upcast, iters=3 if heavy else 10, warmup=1),
+                "one_gemm_ms": _cuda_ms(torch, one_gemm, iters=10, warmup=2),
+                "tflops": 2 * M * V * D / ms / 1e9,
+                "bound_ms": max(2 * M * V * D / PEAK_FLOPS["bfloat16"],
+                                ((M + V) * D * 2 + M * V * 4) / PEAK_BYTES) * 1e3,
+                "logits_gb": M * V * 4 / 1e9, "unembed_fp32_copy_gb": V * D * 4 / 1e9,
+                "port_extra_gb": extra_gb["port"], "upcast_extra_gb": extra_gb["upcast"],
+            }
+        del x, u, params
+        torch.cuda.empty_cache()
+    emit("logits_product", shapes=rows)
+    for name, r in rows.items():
+        check(r["max_abs_diff"] <= LOGITS_RTOL * r["max_abs_upcast"],
+              f"logits product at {name}'s shape: {r['max_abs_diff']} > "
+              f"{LOGITS_RTOL} * {r['max_abs_upcast']}")
+        # nothing beyond the logits (the chunks add into them in place), and
+        # so no fp32 copy of the unembedding
+        check(r["port_extra_gb"] - r["logits_gb"] < 0.5 * r["unembed_fp32_copy_gb"],
+              f"logits product at {name}'s shape took {r['port_extra_gb']} GB beyond its operands")
+
+
 # ------------------------- the remaining one-card configs ---------------------
 
 
@@ -2010,7 +2141,7 @@ def _a5_batch(torch, dev, cfg, B, S, seed) -> dict:
 
 # the phases' names of each config
 A5_PHASE = {WHISPER: "whisper", GEMMA12: "gemma3_12b", MIXTRAL: "mixtral", STABLELM: "stablelm",
-            PHI3V: "phi3_vision"}
+            PHI3V: "phi3_vision", NEMOTRON: "nemotron"}
 
 
 def _a5_expected(cfg) -> dict:
@@ -2027,9 +2158,10 @@ def phase_a5_model(torch, dev, name) -> dict:
     against the plain path through the whole model (at the depth that fits),
     fp32 decode against forward on the same parameters (whisper's with
     ``encode``'s output as ``enc_out``, its K1 launches counted), the bf16 main
-    path counted from 0 (launches, finiteness, top-1 against the plain path,
-    wall time, tokens/s) and one profiled prefill, then ``launch.serve``.
-    Returns the main path's counts."""
+    path counted from 0 (launches, finiteness, wall time, tokens/s, peak
+    memory), top-1 against the plain path (at A5_TOP1_S's shorter length
+    where the plain attention does not fit beside the weights) and one
+    profiled prefill, then ``launch.serve``. Returns the main path's counts."""
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, encode, forward, init_cache, init_params
 
@@ -2079,6 +2211,7 @@ def phase_a5_model(torch, dev, name) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         param_gb = torch.cuda.memory_allocated() / 1e9
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         batch = _a5_batch(torch, dev, cfg, B, S, seed=22)
         forward(cfg, params, batch)  # warm-up
         torch.cuda.synchronize()
@@ -2088,12 +2221,20 @@ def phase_a5_model(torch, dev, name) -> dict:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         counts = _counts()
-        lr, _ = forward(cfg, params, batch, impl="ref")
+        main_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         finite = bool(torch.isfinite(lk).all()) and bool(torch.isfinite(aux))
         shape_ok = tuple(lk.shape) == (B, S, cfg.vocab_size)
+        # top-1 against the plain path, on the main path's batch or a shorter one
+        top1_S = A5_TOP1_S.get(name, S)
+        tbatch = batch
+        if top1_S != S:
+            del lk
+            tbatch = _a5_batch(torch, dev, cfg, B, top1_S, seed=23)
+            lk, _ = forward(cfg, params, tbatch)
+        lr, _ = forward(cfg, params, tbatch, impl="ref")
         top1 = (lk.argmax(-1) == lr.argmax(-1)).float().mean().item()
         err16 = (lk - lr).abs().max().item()
-        del lk, lr
+        del lk, lr, tbatch
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # where the time goes: one profiled bf16 prefill
         prof = _profile(torch, lambda: forward(cfg, params, batch), top=6, groups=_GROUPS)
@@ -2104,8 +2245,9 @@ def phase_a5_model(torch, dev, name) -> dict:
     _reset_counts()
     batch_serve, steps_serve = 4, 32
     tps = serve(name, smoke=False, batch=batch_serve, steps=steps_serve, max_len=128, verbose=False,
-                n_layers=cfg.n_layers if name == MIXTRAL else None)
+                n_layers=A5_LAYERS.get(name))
     serve_counts = _counts()
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
 
     short = A5_PHASE[name]
@@ -2118,8 +2260,9 @@ def phase_a5_model(torch, dev, name) -> dict:
     want_serve = {"flash_attention": 0, "mamba_scan": 0, "mlstm": 0, "gmm": want["gmm"] * steps_serve}
     emit(f"{short}_prefill", config=cfg.name, n_layers=cfg.n_layers, B=B, S=S,
          positions=S + cfg.vision_tokens, encoder_frames=cfg.encoder.n_frames if cfg.encoder else 0,
-         init_s=init_s, param_gb=param_gb, launches=counts, bf16_top1_agreement=top1,
-         bf16_logit_max_abs_err=err16, prefill_s=prefill_s, prefill_tok_per_s=B * S / prefill_s,
+         init_s=init_s, param_gb=param_gb, init_peak_gb=init_peak_gb, launches=counts,
+         bf16_top1_agreement=top1, bf16_top1_S=top1_S, bf16_logit_max_abs_err=err16,
+         prefill_s=prefill_s, prefill_tok_per_s=B * S / prefill_s, main_path_peak_gb=main_peak_gb,
          peak_gb=peak_gb, fp32_n_layers=cfg32.n_layers, fp32_S=fp32_S, fp32_launches=counts32,
          fp32_logit_max_abs_err=err32, fp32_logit_max_abs=scale32,
          fp32_tol=f"max|diff| <= {LOGIT_RTOL} * max|plain|", fp32_peak_gb=fp32_peak_gb,
@@ -2128,7 +2271,7 @@ def phase_a5_model(torch, dev, name) -> dict:
          enc_out=cfg.encoder is not None, max_abs_err=dec_err, tol="atol=rtol=2e-2", launches=decode_counts)
     emit(f"{short}_serve", config=cfg.name, n_layers=cfg.n_layers, batch=batch_serve, steps=steps_serve,
          tok_per_s=tps, ms_per_step=batch_serve / tps * 1e3, launches=serve_counts,
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_gb=serve_peak_gb)
     check(counts32 == want32, f"{cfg.name} fp32 forward launched {counts32}, expected {want32}")
     check(err32 <= LOGIT_RTOL * scale32,
           f"{cfg.name} fp32 logits kernel vs plain: {err32} > {LOGIT_RTOL} * {scale32}")
@@ -2137,6 +2280,9 @@ def phase_a5_model(torch, dev, name) -> dict:
     check(counts == want, f"{cfg.name} bf16 forward launched {counts}, expected {want}")
     check(finite and shape_ok, f"{cfg.name} bf16 logits are not finite or not (B, S, V)")
     check(top1 >= TOP1_MIN, f"{cfg.name} bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
+    most_gb = max(peak_gb, fp32_peak_gb, serve_peak_gb)
+    check(most_gb <= A5_PEAK_GB.get(name, math.inf),
+          f"{cfg.name} held {most_gb} GB, more than {A5_PEAK_GB.get(name)}")
     check(tps > 0 and serve_counts == want_serve,
           f"{cfg.name} serve: {tps} tok/s, launched {serve_counts}, expected {want_serve}")
     return counts
@@ -2623,6 +2769,41 @@ def phase_eval_replay(torch) -> None:
     for f in files:
         check(f["within_rtol"] == f["rows"], f"eval_replay: {f['file']}: rows off {f['off'][:8]}")
     check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
+
+
+def phase_serving_day(torch) -> None:
+    """The multi-tenant-serving day (SERVING_CELL) through the port's
+    ``make_scenario_cell`` and ``run_cell`` once per scheduler, each result
+    against the reference's in SERVING_GOLDEN: the integers, the tenants' job
+    and attainment counts, ``config_trace`` and ``util_histogram`` exact, the
+    floats within EVAL_RTOL."""
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.cells import make_scenario_cell, run_cell
+
+    golden = json.loads(SERVING_GOLDEN.read_text())
+    rows, off = {}, []
+    _reset_counts()
+    for scheduler, want in golden.items():
+        cell = make_scenario_cell(scheduler=scheduler, **SERVING_CELL)
+        t0 = time.perf_counter()
+        got = run_cell(cell)
+        seconds = time.perf_counter() - t0
+        got.pop("elapsed_s")
+        want = want["result"]
+        tenants = {n: [t["jobs"], t["attained"]] for n, t in got["tenants"].items()}
+        ok = (cell == golden[scheduler]["cell"] and PE.values_close(got, want, EVAL_RTOL)
+              and PE._exact_part(got) == PE._exact_part(want)
+              and tenants == {n: [t["jobs"], t["attained"]] for n, t in want["tenants"].items()})
+        if not ok:
+            off.append(scheduler)
+        rows[scheduler] = {"jobs": got["num_jobs"], "slo_attainment": got["slo_attainment"],
+                           "tenants_jobs_attained": tenants, "energy_wh": got["energy_wh"],
+                           "deadline_misses": got["deadline_misses"],
+                           "max_rel_diff": PE._max_rel(got, want), "seconds": seconds}
+    counts = _counts()
+    emit("serving_day", cell=SERVING_CELL, schedulers=rows, off=off, model_kernel_launches=counts)
+    check(not off, f"serving_day: results off the golden file for {off}")
+    check(not any(counts.values()), f"the serving day launched a model kernel: {counts}")
 
 
 def phase_eval_race(torch) -> None:

@@ -1,28 +1,41 @@
 """Architecture configs the port serves, with the JAX package's registry API.
 
 ``get_config(name)`` returns the full production config; ``smoke_config(name)``
-the reduced same-family config for CPU tests. Only the archs whose slice has
-been ported are registered; nemotron-4-340b waits for its own (ROADMAP.md A.5b).
+the reduced same-family config for CPU tests; ``all_configs()`` every full
+config by id. The registry holds the reference's ten archs in its order.
 """
 
 from __future__ import annotations
 
 import importlib
+from typing import Dict
+
 from repro_torch.models.config import ArchConfig
 
-ARCH_IDS = ["gemma3_1b", "jamba_v01_52b", "xlstm_350m", "granite_moe_3b_a800m", "whisper_base",
-            "gemma3_12b", "mixtral_8x7b", "stablelm_3b", "phi3_vision_4_2b"]
+ARCH_IDS = [
+    "xlstm_350m",
+    "nemotron_4_340b",
+    "gemma3_12b",
+    "gemma3_1b",
+    "stablelm_3b",
+    "granite_moe_3b_a800m",
+    "mixtral_8x7b",
+    "whisper_base",
+    "jamba_v01_52b",
+    "phi3_vision_4_2b",
+]
 
 # canonical external ids (assignment spelling) -> module names
 ALIASES = {
-    "gemma3-1b": "gemma3_1b",
-    "jamba-v0.1-52b": "jamba_v01_52b",
     "xlstm-350m": "xlstm_350m",
-    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
-    "whisper-base": "whisper_base",
+    "nemotron-4-340b": "nemotron_4_340b",
     "gemma3-12b": "gemma3_12b",
-    "mixtral-8x7b": "mixtral_8x7b",
+    "gemma3-1b": "gemma3_1b",
     "stablelm-3b": "stablelm_3b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "whisper-base": "whisper_base",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     "phi-3-vision-4.2b": "phi3_vision_4_2b",
 }
 
@@ -30,9 +43,7 @@ ALIASES = {
 def _module(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
-        raise KeyError(
-            f"arch {name!r} is not ported yet (ported: {ARCH_IDS}); see ROADMAP.md queue A"
-        )
+        raise KeyError(f"unknown arch {name!r}; registered: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
@@ -42,3 +53,7 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {n: get_config(n) for n in ARCH_IDS}

@@ -8,6 +8,7 @@ nothing of ``repro``):
 * :mod:`repro_torch.core.jobs`      — jobs with linear/capped/sublinear elasticity
 * :mod:`repro_torch.core.workload`  — §V-A diurnal Poisson workload generator
 * :mod:`repro_torch.core.scenarios` — named workload scenario registry
+* :mod:`repro_torch.core.serving`   — multi-tenant serving streams, configs mapped to MIG classes
 * :mod:`repro_torch.core.metrics`   — the per-run result record and the ET metric
 * :mod:`repro_torch.core.engine`    — the event loop (the bit-exact oracle)
 * :mod:`repro_torch.core.simulator` — ``MIGSimulator`` and the repartitioning policies

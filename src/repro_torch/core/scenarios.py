@@ -9,13 +9,14 @@
 * ``heavy-tail-lognormal``  — diurnal arrivals with lognormal durations;
 * ``heavy-tail-pareto``     — diurnal arrivals with Pareto(Lomax) durations,
   capped at ``cap_min`` minutes;
-* ``weekend-flat``          — a flat low-rate day (no diurnal ramp).
+* ``weekend-flat``          — a flat low-rate day (no diurnal ramp);
+* ``multi-tenant-serving``  — tenant request streams with latency SLOs, the
+  model configs mapped to MIG slice classes (registered by
+  :mod:`repro_torch.core.serving`, imported at the bottom).
 
 Every generator is a pure function of ``(seed, **kwargs)``, a seeded numpy
 stream drawn in the reference's order.  The port's own copy of
-``repro.core.scenarios`` with the six batch scenarios (the six families of
-the evaluation grids); the multi-tenant serving scenario needs the serving
-layer and is not copied.
+``repro.core.scenarios``.
 """
 
 from __future__ import annotations
@@ -276,3 +277,8 @@ def _weekend_flat(
 ) -> List[Job]:
     spec = WorkloadSpec(horizon_min=horizon_min, constant_rate=rate_per_min * load_scale)
     return generate_jobs(spec, seed)
+
+
+# registers "multi-tenant-serving" (latency-SLO tenant streams over the
+# model configs); imported last so the registry above exists when it runs
+import repro_torch.core.serving  # noqa: E402,F401  (registration side effect)

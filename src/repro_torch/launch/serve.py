@@ -5,8 +5,9 @@ config on the card; ``--smoke`` (the default) the reduced one. There is one
 card, so the reference's mesh and sharding arguments are dropped; a config
 too large for it is cut in depth instead, to whole pattern units
 (``--arch jamba-v0.1-52b --full --layers 8``, ``--arch mixtral-8x7b --full
---layers 16``); granite-moe-3b-a800m, xlstm-350m, gemma3-12b, stablelm-3b,
-phi-3-vision-4.2b and whisper-base fit whole (``--arch gemma3-12b --full``).
+--layers 16``, ``--arch nemotron-4-340b --full --layers 6``);
+granite-moe-3b-a800m, xlstm-350m, gemma3-12b, stablelm-3b, phi-3-vision-4.2b
+and whisper-base fit whole (``--arch gemma3-12b --full``).
 On the CPU: ``--smoke --device cpu``.
 
 As the reference's ``serve``, it decodes text tokens only: whisper-base's
@@ -49,8 +50,8 @@ def serve(
     ``n_layers`` replaces the config's depth and must be a multiple of its
     pattern unit. It is the one-card stand-in for the reference's
     ``production_mesh``, which shards a config that one device cannot hold
-    (jamba-v0.1-52b's 32 layers are ~103 GB in bf16, mixtral-8x7b's 93.4 GB;
-    8 and 16 layers fit one card).
+    (jamba-v0.1-52b's 32 layers are ~103 GB in bf16, mixtral-8x7b's 93.4 GB,
+    nemotron-4-340b's 96 682 GB; 8, 16 and 6 layers fit one card).
     """
     if production_mesh:
         raise ValueError("production_mesh: the port serves on one card and has no mesh")

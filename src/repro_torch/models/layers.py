@@ -33,16 +33,27 @@ __all__ = [
 Params = Dict[str, Any]
 
 
+# numbers drawn at a time by ``truncated_normal``: 1 GiB of fp32
+DRAW_CHUNK = 1 << 28
+
+
 def truncated_normal(
     gen: torch.Generator, shape: Sequence[int], scale: float, dtype: torch.dtype, device
 ) -> torch.Tensor:
     """Normal(0, 1) truncated to [-2, 2], times ``scale``, drawn in fp32.
 
-    Scaled in place: a large bf16 leaf (mixtral's 16-layer expert stacks, 15 GB
-    each) then holds one fp32 draw at a time beside it, not two."""
-    x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return x.mul_(scale).to(dtype)
+    A leaf of more than ``DRAW_CHUNK`` numbers is drawn ``DRAW_CHUNK`` at a
+    time into its own storage, so a full-width leaf (nemotron-4-340b's
+    embedding, 4.7 G numbers; a 6-layer stack of its ``w_up``, 8.2 G) holds
+    one 1 GiB fp32 draw beside it at most, not an fp32 copy of itself. A
+    smaller leaf is one draw, as before."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW_CHUNK):
+        x = torch.empty(min(DRAW_CHUNK, flat.numel() - i), dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        flat[i : i + x.numel()] = x.mul_(scale)
+    return out
 
 
 def dense_init(

@@ -200,11 +200,40 @@ def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tenso
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
 
 
+# columns of d_model that the tensor cores sum before the running sum takes
+# them in an fp32 add: their own accumulation loses bits in proportion to its
+# length (on the H100, against an fp64 product at nemotron's 18,432 columns:
+# one GEMM 2.4e-5 of max|logits| off, chunks of 2,048 2.4e-6, the fp32 upcast
+# 4.8e-6; chip_smoke.py's logits_product phase)
+LOGITS_K_CHUNK = 2048
+
+
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 against the (tied) embedding, as the reference's einsum
-    with ``preferred_element_type=float32``."""
+    with ``preferred_element_type=float32``.
+
+    On the card, with bf16 operands and autograd not recording, that is a
+    bf16 GEMM with fp32 output (``torch.mm(..., out_dtype=float32)``) over
+    each ``LOGITS_K_CHUNK`` columns of d_model, the chunks after the first
+    added to the fp32 logits in place by ``addmm``'s epilogue: the products
+    of two bf16 numbers are exact in fp32, so only the order and rounding of
+    the sums differ from the upcast below, and no fp32 copy of the
+    unembedding is made (18.9 GB for nemotron-4-340b). The CPU, fp32 configs
+    and the training path (autograd through the product) upcast both
+    operands.
+    """
     unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = torch.matmul(x.float(), unembed.float().t())
+    records = torch.is_grad_enabled() and (x.requires_grad or unembed.requires_grad)
+    if (x.device.type == "cuda" and x.dtype == unembed.dtype == torch.bfloat16
+            and not records):
+        x2, kc = x.reshape(-1, x.shape[-1]), LOGITS_K_CHUNK
+        logits = torch.mm(x2[:, :kc], unembed[:, :kc].t(), out_dtype=torch.float32)
+        for k0 in range(kc, x2.shape[1], kc):
+            torch.addmm(logits, x2[:, k0 : k0 + kc], unembed[:, k0 : k0 + kc].t(),
+                        out_dtype=torch.float32, out=logits)
+        logits = logits.view(*x.shape[:-1], unembed.shape[0])
+    else:
+        logits = torch.matmul(x.float(), unembed.float().t())
     if cfg.logit_softcap is not None:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

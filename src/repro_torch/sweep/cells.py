@@ -13,8 +13,9 @@ seed, mig_enabled, repartition_mode}``
 * ``seed`` drives the job stream, making the cell deterministic.
 
 The port's own slim copy of ``repro.sweep.cells``: the registry,
-:func:`make_cell`, and :func:`run_cell` for single-GPU cells on the oracle (the
-event-driven :class:`MIGSimulator`), returning the reference's result dict.
+:func:`make_cell` and :func:`make_scenario_cell`, and :func:`run_cell` for
+single-GPU cells on the oracle (the event-driven :class:`MIGSimulator`),
+returning the reference's result dict.
 The sweep engine around it (content hashes, the on-disk cache, worker
 pools) is not copied: the port runs cells inline.  Fleet cells and
 ``backend == "batched"`` cells are refused (the fleet layer and the batched
@@ -47,6 +48,7 @@ __all__ = [
     "cell_repartition_mode",
     "make_cell",
     "make_policy",
+    "make_scenario_cell",
     "result_to_sim_result",
     "run_cell",
 ]
@@ -217,6 +219,37 @@ def make_cell(
             "kwargs": resolve_scenario_kwargs(scenario, scenario_kwargs),
         }
     return cell
+
+
+def make_scenario_cell(
+    *,
+    experiment: str,
+    group: str,
+    scheduler: str,
+    scenario: str,
+    seed: int,
+    scenario_kwargs: Optional[Mapping[str, Any]] = None,
+    policy: str = "static",
+    policy_kwargs: Optional[Mapping[str, Any]] = None,
+    mig_enabled: bool = True,
+    repartition_mode: str = "partial",
+) -> Cell:
+    """A cell whose jobs come from a registered scenario, not a raw spec
+    (``multi-tenant-serving``'s cells among them); the scenario's knobs are
+    resolved against its defaults into the cell. The reference's ``backend``
+    arguments are not taken: the port runs cells on the oracle only."""
+    return make_cell(
+        experiment=experiment,
+        group=group,
+        scheduler=scheduler,
+        seed=seed,
+        scenario=scenario,
+        scenario_kwargs=scenario_kwargs,
+        policy=policy,
+        policy_kwargs=policy_kwargs,
+        mig_enabled=mig_enabled,
+        repartition_mode=repartition_mode,
+    )
 
 
 # ----------------------------------------------------------------------

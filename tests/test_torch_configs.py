@@ -1,11 +1,14 @@
-"""The port's remaining one-card configs against the JAX package's, on the CPU.
+"""The port's remaining configs against the JAX package's, on the CPU.
 
 whisper-base (the encoder and cross-attention), phi-3-vision-4.2b (the
-vision stub), gemma3-12b, mixtral-8x7b and stablelm-3b, each at its smoke
-config. Both sides run the same parameters (the JAX package's
-``init_params`` tree, converted with ``params_from_jax``) on the same
-numpy-made batch; the reference runs at ``impl="ref"``, compiled once per
-arch in a module fixture. Their losses and gradients are held in
+vision stub), gemma3-12b, mixtral-8x7b, stablelm-3b and nemotron-4-340b
+(LayerNorm, squared ReLU, GQA 96/8 at head dim 192 in full width, untied
+embeddings), each at its smoke config; the registries of all ten configs;
+the logits product on bf16 operands; the initialiser's chunked draws. Both
+sides run the same parameters (the JAX package's ``init_params`` tree,
+converted with ``params_from_jax``) on the same numpy-made batch; the
+reference runs at ``impl="ref"``, compiled once per arch in a module
+fixture. Their losses and gradients are held in
 tests/test_torch_train.py and their train steps in
 tests/test_torch_train_step.py.
 
@@ -19,6 +22,9 @@ Tolerances:
   ulp and some: the same roundings at other places of the sums).
 * the port's plain attention against the reference's Pallas kernel in
   interpret mode: 2e-5, the fp32 bar of tests/test_kernels.py.
+* the logits product on bf16 operands against the reference's einsum
+  (``preferred_element_type=float32``): 1e-6 * max; both sum exact fp32
+  products, in other orders.
 """
 
 import dataclasses
@@ -29,6 +35,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALIASES as JAX_ALIASES
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+from repro.configs import all_configs as jax_all_configs
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
@@ -39,11 +48,15 @@ from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro.models import transformer as jax_transformer
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ALIASES as PORT_ALIASES
+from repro_torch.configs import ARCH_IDS as PORT_ARCH_IDS
+from repro_torch.configs import all_configs, get_config, smoke_config
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.launch.serve import serve
 from repro_torch.launch.train import train
+from repro_torch.models import layers as port_layers
+from repro_torch.models import transformer as port_transformer
 from repro_torch.models import (
     abstract_params,
     attention,
@@ -55,15 +68,18 @@ from repro_torch.models import (
 )
 from repro_torch.models.convert import params_from_jax, tensor_from_numpy
 
-ARCHS = ["whisper_base", "phi3_vision_4_2b", "gemma3_12b", "mixtral_8x7b", "stablelm_3b"]
+ARCHS = ["whisper_base", "phi3_vision_4_2b", "gemma3_12b", "mixtral_8x7b", "stablelm_3b",
+         "nemotron_4_340b"]
 ALIASES = {"whisper_base": "whisper-base", "phi3_vision_4_2b": "phi-3-vision-4.2b",
-           "gemma3_12b": "gemma3-12b", "mixtral_8x7b": "mixtral-8x7b", "stablelm_3b": "stablelm-3b"}
+           "gemma3_12b": "gemma3-12b", "mixtral_8x7b": "mixtral-8x7b", "stablelm_3b": "stablelm-3b",
+           "nemotron_4_340b": "nemotron-4-340b"}
 B, S = 2, 64
 LOGIT_RTOL = 1e-5
 TOP1_MIN = 0.99
 DECODE_VS_FORWARD_TOL = 2e-2
 LAYER_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 ATTN_TOL = 2e-5
+LOGITS_BF16_RTOL = 1e-6
 DECODE_STEPS = 8
 
 
@@ -176,6 +192,98 @@ def test_mixtral_cuts_to_whole_one_layer_units():
     assert cfg.pattern_unit() == (("attn", True),) and cfg.num_pattern_repeats == 32
     cut = dataclasses.replace(cfg, n_layers=16)
     assert cut.num_pattern_repeats == 16
+
+
+def test_registries_equal_the_references():
+    """The same ten ids in the reference's order, the same aliases, and every
+    full and smoke config field for field."""
+    assert PORT_ARCH_IDS == JAX_ARCH_IDS and len(PORT_ARCH_IDS) == 10
+    assert PORT_ALIASES == JAX_ALIASES
+    port, ref = all_configs(), jax_all_configs()
+    assert list(port) == list(ref) == PORT_ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in port.items()} == {
+        k: dataclasses.asdict(v) for k, v in ref.items()}
+    for name in PORT_ARCH_IDS:
+        assert dataclasses.asdict(smoke_config(name)) == dataclasses.asdict(jax_smoke_config(name))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
+
+
+def test_nemotron_counts_and_cuts_to_whole_one_layer_units():
+    """341,025,619,968 parameters (the reference's ``param_count``, all of them
+    active), 3.454 B a layer; cut to 6 of its 96 one-layer units, the tree
+    (the untied 256,000 x 18,432 embedding and unembedding with it) holds
+    60.32 GB in bf16."""
+    cfg = get_config("nemotron-4-340b")
+    assert cfg.param_count() == cfg.param_count(active_only=True) == 341_025_619_968
+    assert cfg.pattern_unit() == (("attn", False),) and cfg.num_pattern_repeats == 96
+    assert not cfg.tie_embeddings and cfg.resolved_head_dim == 192
+    cut = dataclasses.replace(cfg, n_layers=6)
+    assert cut.num_pattern_repeats == 6
+    per_layer = (cfg.param_count() - cut.param_count()) // 90
+    assert per_layer == 3_454_046_208
+    assert sum(t.numel() for t in _flat(abstract_params(cut)).values()) * 2 == 60_323_438_592
+
+
+# ------------------------------- the logits product -------------------------
+
+
+@pytest.mark.parametrize("tied, d, V", [(True, 1152, 2048), (False, 2304, 1024)],
+                         ids=["tied_d1152", "untied_d2304"])
+def test_bf16_logits_match_the_references_einsum(tied, d, V):
+    """``_logits`` on bf16 operands (a tied and an untied unembedding) against
+    the reference's ``einsum("bsd,vd->bsv", ..., preferred_element_type=float32)``
+    on the same operands."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((B, 48, d)).astype(np.float32)
+    table = (rng.standard_normal((V, d)) * 0.5).astype(np.float32)
+    cfg = dataclasses.replace(smoke_config("nemotron_4_340b"), tie_embeddings=tied)
+    xb, tb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(table, jnp.bfloat16)
+    want = jax.jit(lambda x_, t_: jnp.einsum("bsd,vd->bsv", x_, t_,
+                                             preferred_element_type=jnp.float32))(xb, tb)
+    params = {"embed" if tied else "unembed": tensor_from_numpy(np.asarray(tb))}
+    got = port_transformer._logits(cfg, params, tensor_from_numpy(np.asarray(xb)))
+    assert got.dtype == torch.float32 and got.shape == (B, 48, V)
+    _close(got.numpy(), np.asarray(want), LOGITS_BF16_RTOL, "logits")
+
+
+def test_logits_on_the_cpu_and_while_autograd_records_upcast_both_operands():
+    """The CPU route (and the card's while autograd records) is the fp32
+    product of the upcast operands, bit for bit; the card's inference route
+    is held against it in tests/test_torch_cuda.py and chip_smoke.py."""
+    cfg = dataclasses.replace(smoke_config("nemotron_4_340b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device="cpu")
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator().manual_seed(0)).bfloat16()
+    want = torch.matmul(x.float(), params["unembed"].float().t())
+    assert torch.equal(port_transformer._logits(cfg, params, x), want)
+    got = port_transformer._logits(cfg, params, x.requires_grad_())
+    assert got.requires_grad and torch.equal(got.detach(), want)
+
+
+# ------------------------------- initialisation -----------------------------
+
+
+def test_truncated_normal_draws_a_large_leaf_in_chunks(monkeypatch):
+    """A leaf of at most ``DRAW_CHUNK`` numbers is one fp32 draw, scaled and
+    cast; a larger one is the same draws made ``DRAW_CHUNK`` at a time from the
+    one generator, written into the leaf in order."""
+    def draw(gen, n):
+        x = torch.empty(n, dtype=torch.float32)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return x.mul_(0.5).to(torch.bfloat16)
+
+    small = port_layers.truncated_normal(torch.Generator().manual_seed(1), (6, 10), 0.5,
+                                         torch.bfloat16, "cpu")
+    assert small.dtype == torch.bfloat16 and torch.equal(
+        small.view(-1), draw(torch.Generator().manual_seed(1), 60))
+    monkeypatch.setattr(port_layers, "DRAW_CHUNK", 16)
+    big = port_layers.truncated_normal(torch.Generator().manual_seed(1), (6, 10), 0.5,
+                                       torch.bfloat16, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    want = torch.cat([draw(gen, n) for n in (16, 16, 16, 12)])
+    assert torch.equal(big.view(-1), want)
+    assert float(big.float().abs().max()) <= 1.0
 
 
 # ------------------------------- the models --------------------------------
@@ -371,10 +479,10 @@ def test_modality_inputs_on_another_device_raise():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_smoke_on_cpu(arch):
     """``launch.serve`` decodes without ``enc_out``, as the reference's
-    ``serve`` does; mixtral also cut to one of its two layers."""
+    ``serve`` does; mixtral and nemotron also cut to one of their layers."""
     tps = serve(ALIASES[arch], smoke=True, steps=3, device="cpu", verbose=False)
     assert np.isfinite(tps) and tps > 0
-    if arch == "mixtral_8x7b":
+    if arch in ("mixtral_8x7b", "nemotron_4_340b"):
         assert serve(arch, smoke=True, steps=3, n_layers=1, device="cpu", verbose=False) > 0
 
 

@@ -1132,3 +1132,123 @@ def test_whisper_decode_with_enc_out_on_the_card_matches_the_cpu(card):
         scale = float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale, i
     assert fa.LAUNCHES == before + 8 * cfg.n_layers
+
+
+# ----------------------- the logits product and nemotron ----------------------
+
+
+@pytest.mark.parametrize("d_model", [1152, 2048, 4100, 18432])
+def test_logits_product_on_the_card_matches_the_upcast(card, d_model):
+    """bf16 operands with autograd off: fp32 logits within 1e-5 of max of
+    the fp32 upcast's (one chunk of d_model, exactly one, one and a ragged
+    4-column one, nemotron's nine); while autograd records, the upcast itself."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(smoke_config("nemotron_4_340b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    gen = torch.Generator(device=card).manual_seed(d_model)
+    x = torch.randn(3, 40, d_model, device=card, generator=gen).bfloat16()
+    u = torch.randn(1000, d_model, device=card, generator=gen).bfloat16()
+    params = {"unembed": u}
+    want = torch.matmul(x.float(), u.float().t())
+    with torch.inference_mode():
+        got = T._logits(cfg, params, x)
+    assert got.dtype == torch.float32 and got.shape == (3, 40, 1000)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    recorded = T._logits(cfg, params, x.clone().requires_grad_())
+    assert recorded.requires_grad and torch.equal(recorded.detach(), want)
+
+
+def test_logits_product_on_the_card_makes_no_fp32_copy_of_the_unembedding(card):
+    """32 rows against a 65,536 x 4,096 bf16 unembedding (0.54 GB; 1.07 GB in
+    fp32): the product allocates its 8 MB of logits (the second chunk adds
+    into them in place), not the copy; the upcast does allocate it."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(smoke_config("nemotron_4_340b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    x = torch.randn(1, 32, 4096, device=card).bfloat16()
+    params = {"unembed": torch.randn(65536, 4096, device=card).bfloat16()}
+
+    def extra_gb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    with torch.inference_mode():
+        assert extra_gb(lambda: T._logits(cfg, params, x)) < 0.01
+        assert extra_gb(lambda: torch.matmul(x.float(), params["unembed"].float().t())) > 1.0
+
+
+def test_nemotron_smoke_on_the_card_matches_the_cpu(card):
+    """nemotron-4-340b's smoke config in fp32 with heads of 64 (the kernel
+    takes head dims from 64): forward on the card (K1 in each layer, GQA 2/1)
+    against the CPU (plain attention) at the fp32 logits bar, then 8 decode
+    steps; in bf16, the card's forward (K1 and the chunked logits product)
+    gives finite fp32 logits (chip_smoke.py's nemotron_prefill holds its
+    top-1 at full width)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.tree import leaves, unflatten
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(smoke_config("nemotron_4_340b"), n_heads=2, n_kv_heads=1,
+                                  dtype=dtype, param_dtype=dtype)
+        assert cfg.resolved_head_dim == 64
+        params = init_params(cfg, seed=0, device="cpu")
+        on_card = unflatten(params, [t.to(card) for t in leaves(params)])
+        tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 64))
+        with torch.inference_mode():
+            want, _ = forward(cfg, params, {"tokens": tokens}, device="cpu")
+            before = fa.LAUNCHES
+            got, _ = forward(cfg, on_card, {"tokens": torch.from_numpy(tokens).to(card)})
+            assert fa.LAUNCHES == before + cfg.n_layers
+        if dtype == "bfloat16":
+            assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+            continue
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        cache_cpu, cache_card = init_cache(cfg, 2, 8, device="cpu"), init_cache(cfg, 2, 8)
+        for i in range(8):
+            tok = tokens[:, i : i + 1]
+            w, cache_cpu = decode_step(cfg, params, cache_cpu, tok, i, device="cpu")
+            g, cache_card = decode_step(cfg, on_card, cache_card, torch.from_numpy(tok).to(card), i)
+            assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max()), i
+
+
+# ------------------------------ the serving day -------------------------------
+
+
+def test_serving_day_on_the_card_machine_matches_the_golden_file(card):
+    """The multi-tenant-serving day of tests/data/torch_serving_golden.json
+    under EDF-FS through ``run_cell`` on the card's machine (host code; the
+    card's default device resolves), against the reference's result."""
+    import json
+
+    from repro_torch.launch.evaluate import _exact_part, values_close
+    from repro_torch.sweep.cells import make_scenario_cell, run_cell
+
+    golden = json.loads((Path(__file__).resolve().parent / "data" / "torch_serving_golden.json")
+                        .read_text())["EDF-FS"]
+    cell = make_scenario_cell(
+        experiment="t", group="g", scheduler="EDF-FS", seed=11, scenario="multi-tenant-serving",
+        scenario_kwargs={"horizon_min": 1440.0, "load_scale": 1.0}, policy="static",
+        policy_kwargs={"config_id": 3})
+    assert cell == golden["cell"]
+    got = run_cell(cell)
+    got.pop("elapsed_s")
+    want = golden["result"]
+    assert values_close(got, want, 1e-9) and _exact_part(got) == _exact_part(want)
+    assert {n: (t["jobs"], t["attained"]) for n, t in got["tenants"].items()} == {
+        n: (t["jobs"], t["attained"]) for n, t in want["tenants"].items()}

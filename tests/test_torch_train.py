@@ -1,7 +1,7 @@
 """The port's ``loss_fn`` and its gradients against the JAX package's, on the CPU.
 
 For each ported arch at smoke size (gemma3-1b, granite-moe-3b-a800m,
-whisper-base and phi-3-vision-4.2b here; jamba-v0.1-52b, xlstm-350m,
+whisper-base, phi-3-vision-4.2b and nemotron-4-340b here; jamba-v0.1-52b, xlstm-350m,
 gemma3-12b, mixtral-8x7b and stablelm-3b in tests/test_torch_train_hybrid.py;
 gemma3-1b cut to one 6-layer unit), both sides run the same
 parameters (the JAX package's ``init_params`` tree, converted with
@@ -40,7 +40,7 @@ from repro_torch.tree import flatten_with_paths, path_key
 
 # this file's archs; tests/test_torch_train_hybrid.py runs the same tests on
 # the others, on another worker
-ARCHS = ["gemma3_1b", "granite_moe_3b_a800m", "whisper_base", "phi3_vision_4_2b"]
+ARCHS = ["gemma3_1b", "granite_moe_3b_a800m", "whisper_base", "phi3_vision_4_2b", "nemotron_4_340b"]
 B, S = 2, 64
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4

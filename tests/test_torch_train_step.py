@@ -62,12 +62,14 @@ STATE_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8}
 # tests/test_torch_train.py, and their steps on the card in chip_smoke.py);
 # then one step of each config ported since: whisper's encoder and
 # cross-attention, phi-3-vision's image positions, gemma3-12b, mixtral,
-# stablelm
+# stablelm, nemotron
 CASES = [("granite_moe_3b_a800m", 1, "float32"), ("granite_moe_3b_a800m", 2, "float32"),
          ("granite_moe_3b_a800m", 2, "bfloat16"), ("whisper_base", 1, "float32"),
          ("phi3_vision_4_2b", 1, "float32"), ("gemma3_12b", 1, "float32"),
-         ("mixtral_8x7b", 1, "float32"), ("stablelm_3b", 1, "float32")]
-NEW_ARCHS = ("whisper_base", "phi3_vision_4_2b", "gemma3_12b", "mixtral_8x7b", "stablelm_3b")
+         ("mixtral_8x7b", 1, "float32"), ("stablelm_3b", 1, "float32"),
+         ("nemotron_4_340b", 1, "float32")]
+NEW_ARCHS = ("whisper_base", "phi3_vision_4_2b", "gemma3_12b", "mixtral_8x7b", "stablelm_3b",
+             "nemotron_4_340b")
 GRAD_TOL = 1e-4  # the gradient bar of tests/test_torch_train.py
 
 
