@@ -149,14 +149,15 @@ kernel of the four (its step is batched torch ops):
               ``simulate_batch`` after a warm-up of two chunks at full
               width, peak memory, env-steps/s, simulated
               rollout-minutes/s, events-equivalent/s (the reference oracle's
-              event count at that load over the wall time), and over one
-              512-step chunk under torch.profiler the launches and device
-              busy time per step and the device's idle share; the first 8
+              event count at that load over the wall time), and over 128
+              steps (since PR 25; a 512-step chunk before) under
+              torch.profiler the launches and device busy time per step and
+              the device's idle share; the first 8
               rollouts of (b) held to the port's CPU run of them.
 
-Then the on-device DQN trainer (``repro_torch.core.rl``), whose step is the
-simulator's and whose learner is an MLP of three matmuls (no kernel of the
-four):
+Then the DQN trainers (``repro_torch.core.rl``): the on-device one, whose
+step is the simulator's, and the paper's host loop over the event-driven
+simulator; the learner is an MLP of three matmuls (no kernel of the four):
 
 33. rl_parity — on the card, with tests/torch_rl_golden.py's inputs and
               runs of the port: the checked-in parameters
@@ -182,21 +183,46 @@ four):
               the launches and device busy time per decision, and the idle
               share against the same decisions' unprofiled wall.
 
-Then the evaluation path (``repro_torch.launch.evaluate``): the event-driven
-simulator, the four schedulers, the policy registry and the forecast
-controller (float64 host code), with the greedy DQN's Q network on the card
-(no kernel of the four):
+35. rl_host_train — the paper's host trainer (``train_rl --backend host``,
+              ``train_dqn`` over ``RepartitionEnv`` at
+              examples/dynamic_repartitioning_day.py's configuration, the
+              queue heuristic guiding) for 8 episodes, 2 guided, the Q network
+              and TD update on the card: seconds an episode, env-steps/s, TD
+              updates, finite losses, peak memory; every 100th TD update
+              repeated on the CPU from the card's state and batch (1e-5,
+              DESIGN.md §11); the same 8 episodes on the CPU from the same
+              initial parameters, in a child process beside the card's run,
+              held to the card's (actions, rewards to 1e-9) up to the first
+              decision where they part, which is reported with its TD updates
+              and Q gaps (fp32 rounding, amplified by Adam, parts two runs
+              after some hundreds of updates); over 50 more decisions with
+              updates on, under torch.profiler, the launches and device busy
+              time per decision and the idle share against their unprofiled
+              wall.
 
-35. eval_replay — every cell of the four checked-in sweep baselines
+Then the evaluation path (``repro_torch.launch.evaluate``): the event-driven
+simulator, the four schedulers, the policy registry, the forecast controller
+and the fleet layer (float64 host code), with the greedy DQN's Q network on
+the card (no kernel of the four):
+
+36. eval_replay — every cell of the seven checked-in sweep baselines
               (benchmarks/baselines/{smoke_sweep, scenario_matrix,
-              repartition_policies, repartition_modes}.jsonl, 464 rows)
-              through the port's ``run_cell``; per file the rows, the rows
-              within rtol 1e-9 (the integers, ``config_trace`` and
-              ``util_histogram`` exact), the largest relative difference and
-              the seconds; the forecaster's fitted coefficients against the
-              reference's (tests/data/torch_eval_forecast_golden.json). Any
-              row off fails.
-36. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
+              repartition_policies, repartition_modes}.jsonl and the fleet
+              rows of {fleet_scaling, dispatchers, serving_matrix}.jsonl, 518
+              rows) through the port's ``run_cell``; per file the rows, the
+              rows within rtol 1e-9 (the integers, ``dispatch_counts``, the
+              devices' tenants, ``config_trace`` and ``util_histogram``
+              exact), the largest relative difference and the seconds; the
+              forecaster's fitted coefficients against the reference's
+              (tests/data/torch_eval_forecast_golden.json). Any row off fails.
+37. fleet_dqn — ``evaluate_policy_fleet`` with the checked-in npz as the
+              registry's ``"dqn"`` (one Q network a device, on the card) on
+              2xA100+2xA30, state-aware, 4 paper-diurnal days, against the
+              reference's results in tests/data/torch_fleet_golden.json
+              (rtol 1e-9, integers exact); the same days with every greedy
+              decision logged, each held to a CPU learner's action (flips
+              with their Q gaps); the wall seconds.
+38. eval_race — the checked-in policy (rl_dqn_params.npz) loaded into the
               port's learner on the card and raced against the forecast
               controller on the six families at scale 0.1, as
               scripts/train_rl_baseline.py's check does: each row and
@@ -204,11 +230,11 @@ controller (float64 host code), with the greedy DQN's Q network on the card
               wall time, every decision whose action differs from the port's
               CPU run with its Q gap, and over one profiled day the Q
               network's launches and device time per decision.
-37. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
+39. eval_table3 — Table III at scale 1.0 (10 ``WorkloadSpec`` days a model):
               NoMIG, static config 3, DayNight, the queue heuristic and the
               checked-in npz as the registry's ``"dqn"`` (event cadence): ET
               and the improvement over NoMIG per model, measured, not gated.
-38. serving_day — the multi-tenant-serving scenario (tenants of the
+40. serving_day — the multi-tenant-serving scenario (tenants of the
               configs above mapped to MIG slice classes, latency SLOs over the
               diurnal day): the balanced mix, seed 11, static config 3, a
               whole day at load 1.0, once with each of EDF-FS, EDF-SS, LLF
@@ -222,14 +248,14 @@ chunked softmax, ``make_train_step``, ``SyntheticLM``, the checkpoint store),
 which trains through autograd on the plain versions at ``impl="ref"``, as the
 reference does (the four kernels are forward-only and stay off it):
 
-39. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
+41. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
               configs in fp32 (granite with 2 microbatches), one
               ``make_train_step`` step from the same parameters and non-zero
               optimiser state on the same ``SyntheticLM`` batch, on the
               card and on the CPU: loss and grad norm within 1e-5 relative,
               every parameter within 1e-5 of its leaf's largest, m and v
               within 1e-4; the worst leaf of each arch.
-40. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
+42. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
               (global batch 8, sequence 256, bf16; 0.9998 B parameters) for 6
               steps with a checkpoint every 3 into a temporary directory
               (its free disk first); then step 6 deleted and ``train`` again,
@@ -494,6 +520,10 @@ SIM_BARS = {
 SIM_SIZES = {"a": (2048, 1.0), "b": (256, 12.0)}
 SIM_AGREEMENT = ROOT / "benchmarks" / "baselines" / "batched_agreement.json"
 SIM_HELD = 8  # rollouts of (b) held to the port's CPU run
+# steps of the window timed alone and under torch.profiler (its per-step
+# launches, busy time and idle share); a quarter of a 512-step chunk, since
+# gathering a whole chunk's ~150 k device events took the profiler ~30 s a size
+SIM_PROFILED_STEPS = 128
 
 # the on-device DQN trainer: the checked-in baseline (its parameters and
 # params_probe) and the golden file that tests/test_torch_rl.py and
@@ -511,10 +541,30 @@ RL_REWARD_RTOL = 1e-6
 RL_ROUNDS = 2  # rl_train: rounds of 64 episodes at the baseline's width
 RL_PROFILED = 4  # decisions of rl_train's profile
 
+# the paper's host trainer (train_rl --backend host, examples/
+# dynamic_repartitioning_day.py's configuration) for 8 episodes, 2 guided, on
+# the card and, in a child process beside it, on the CPU from the same initial
+# parameters; the episodes are held to each other up to the first greedy flip
+RL_HOST_EPISODES = 8
+RL_HOST_GUIDE = 2
+RL_HOST_PROFILED = 50  # decisions under torch.profiler, updates on
+RL_HOST_REWARD_RTOL = 1e-9  # float64 host rewards while the actions agree
+# every RL_HOST_STEP_EVERY-th TD update of the card's run is repeated on the
+# CPU from the card's state and batch (DESIGN.md §11's 1e-5): two independent
+# runs part after some hundreds of updates, as a one-ulp change to one initial
+# weight makes two CPU runs part (fp32 rounding, amplified by Adam and the
+# bootstrapped targets), so the trajectory is held update by update
+RL_HOST_STEP_EVERY = 100
+
 # the evaluation path: the checked-in sweep rows it replays, at the reference's
-# baseline tolerance (python -m repro.sweep --check-baseline's --rtol)
+# baseline tolerance (python -m repro.sweep --check-baseline's --rtol); the
+# last three are fleet rows (the fleet layer)
 EVAL_FILES = [ROOT / "benchmarks" / "baselines" / f"{name}.jsonl" for name in
-              ("smoke_sweep", "scenario_matrix", "repartition_policies", "repartition_modes")]
+              ("smoke_sweep", "scenario_matrix", "repartition_policies", "repartition_modes",
+               "fleet_scaling", "dispatchers", "serving_matrix")]
+# evaluate_policy_fleet with the checked-in npz as the registry's "dqn" on
+# 2xA100+2xA30, state-aware, 4 paper-diurnal days (tests/test_torch_fleet.py)
+FLEET_GOLDEN = ROOT / "tests" / "data" / "torch_fleet_golden.json"
 EVAL_RTOL = 1e-9
 EVAL_FORECAST_GOLDEN = ROOT / "tests" / "data" / "torch_eval_forecast_golden.json"
 EVAL_RACE_SCALE = 0.1  # rl_batched.json's scale
@@ -543,8 +593,12 @@ TRAIN_ARGS = {"steps": 6, "global_batch": 8, "seq_len": 256, "accum_steps": 1, "
 TRAIN_RESUME_RTOL = 1e-3
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s`` is the script's seconds when it ended."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -595,7 +649,9 @@ def main() -> int:
     phase_sim_throughput(torch)
     phase_rl_parity(torch)
     phase_rl_train(torch)
+    phase_rl_host_train(torch)
     phase_eval_replay(torch)
+    phase_fleet_dqn(torch)
     phase_eval_race(torch)
     phase_eval_table3(torch)
     phase_serving_day(torch)
@@ -2431,7 +2487,7 @@ def phase_sim_parity(torch) -> None:
 
 def phase_sim_throughput(torch) -> None:
     """``simulate_batch`` on the card at the two sizes of SIM_SIZES: rates, and
-    over one 512-step chunk the launches and busy time per step and the idle share."""
+    over SIM_PROFILED_STEPS steps the launches and busy time per step and the idle share."""
     import repro_torch.core.batched as P
     from repro_torch.core.batched import backend as PB
 
@@ -2459,8 +2515,8 @@ def phase_sim_throughput(torch) -> None:
                              n_steps=2 * chunk, penalty_min=tables.penalty_min)
 
         def one_chunk():
-            return PB.run_steps(state, jobs, pol, consts, t0_min=2 * chunk * dt, n_steps=chunk,
-                                penalty_min=tables.penalty_min)
+            return PB.run_steps(state, jobs, pol, consts, t0_min=2 * chunk * dt,
+                                n_steps=SIM_PROFILED_STEPS, penalty_min=tables.penalty_min)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2491,11 +2547,12 @@ def phase_sim_throughput(torch) -> None:
             "events_equiv_per_s": events[load] * B / wall,
             "events_note": "the reference oracle's event count at this load "
                            "(benchmarks/baselines/batched_agreement.json) over this run's wall time",
+            "profiled_steps": SIM_PROFILED_STEPS,
             "chunk_wall_ms": chunk_ms,
             "profile_s": profile_s,
-            "ms_per_step": chunk_ms / chunk,
-            "launches_per_step": prof["launches"] / chunk,
-            "device_busy_ms_per_step": busy / chunk,
+            "ms_per_step": chunk_ms / SIM_PROFILED_STEPS,
+            "launches_per_step": prof["launches"] / SIM_PROFILED_STEPS,
+            "device_busy_ms_per_step": busy / SIM_PROFILED_STEPS,
             "device_idle_share": 1 - busy / chunk_ms if busy else None,
             "profiled_chunk": prof,
         }
@@ -2744,6 +2801,258 @@ def phase_rl_train(torch) -> None:
           "rl_train: non-finite parameters")
     check(row["profiled_updates"] == RL_PROFILED, "rl_train: the profiled decisions did not all train")
     check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
+
+
+def _host_train_run(device=None) -> dict:
+    """``train_rl.train_host`` for RL_HOST_EPISODES episodes (RL_HOST_GUIDE
+    guided) on ``device``, every ``act`` recorded (the action and, where it was
+    greedy, its Q values, and the TD updates made so far), where each episode
+    starts in that record, and, on
+    the card, the state and batch of every RL_HOST_STEP_EVERY-th TD update with
+    the loss and parameters it gave. On the CPU (``device="cpu"``) it runs in a
+    child process that does not see the card."""
+    import copy
+
+    if device == "cpu":
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    if device == "cpu":
+        torch.set_num_threads(4)  # half the card machine's cores
+    from repro_torch.core.rl import train as PT
+    from repro_torch.core.rl.dqn import mlp_params_to_numpy
+    from repro_torch.launch import train_rl
+
+    log, resets, steps = [], [], []
+    training = True  # the learner records its updates until train_host returns
+
+    def host(tree):
+        return [[t.detach().cpu().clone() for t in wb] for wb in tree]
+
+    class Recording(PT.DQNLearner):
+        def act(self, state, epsilon):  # the base act's draws and choice, recorded
+            if self._rng.uniform() < epsilon:
+                a = int(self._rng.integers(0, self.cfg.num_actions))
+                log.append((a, None, self.updates))
+                return a
+            q = self.q(state)
+            a = int(np.argmax(q))
+            log.append((a, q, self.updates))
+            return a
+
+        def maybe_train(self, steps_=1):
+            if (device == "cpu" or not training or self.buffer.size < self.cfg.min_buffer
+                    or (self.updates + 1) % RL_HOST_STEP_EVERY):
+                return super().maybe_train(steps_)
+            # the batch the update will draw, from a copy of the generator
+            batch = self.buffer.sample(copy.deepcopy(self._rng), self.cfg.batch_size)
+            st = self.opt_state
+            before = (host(self.params), host(self.target),
+                      ([t.cpu().clone() for t in st.m], [t.cpu().clone() for t in st.v], st.step.cpu()))
+            loss = super().maybe_train(steps_)
+            steps.append({"update": self.updates, "state": before, "batch": batch, "loss": loss,
+                          "params": mlp_params_to_numpy(self.params)})
+            return loss
+
+    class Marking(PT.RepartitionEnv):
+        def reset(self, *a, **kw):
+            resets.append(len(log))
+            return super().reset(*a, **kw)
+
+    saved = PT.DQNLearner, PT.RepartitionEnv
+    PT.DQNLearner, PT.RepartitionEnv = Recording, Marking
+    try:
+        learner, stats = train_rl.train_host(RL_HOST_EPISODES, RL_HOST_GUIDE, device=device,
+                                             verbose=False)
+    finally:
+        PT.DQNLearner, PT.RepartitionEnv = saved
+        training = False
+    return {"learner": learner if device != "cpu" else None, "log": log, "resets": resets,
+            "steps": steps, "stats": dataclasses.asdict(stats), "updates": learner.updates,
+            "params": mlp_params_to_numpy(learner.params)}
+
+
+def _first_flip(log, other) -> dict:
+    """The first decision whose action differs between two records, with each
+    side's top-two Q gap (None where it explored)."""
+    def gap(q):
+        return None if q is None else float(np.sort(q)[-1] - np.sort(q)[-2])
+
+    for i, ((a, q, updates), (b, qo, _)) in enumerate(zip(log, other)):
+        if a != b:
+            return {"decision": i, "updates_before": updates, "card": a, "cpu": b,
+                    "card_q_gap": gap(q), "cpu_q_gap": gap(qo)}
+    return None
+
+
+def _steps_on_cpu(cfg, steps) -> dict:
+    """Each recorded card TD update again on the CPU, from the card's state and
+    batch: the largest loss and parameter differences (absolute)."""
+    import torch
+
+    from repro_torch.core.rl.dqn import make_td_update, mlp_params_to_numpy
+    from repro_torch.optim.adamw import OptState
+
+    _, update = make_td_update(cfg)
+    loss_d, param_d = [], []
+    for st in steps:
+        params, target, (m, v, step) = st["state"]
+        new, _, loss = update([tuple(wb) for wb in params], [tuple(wb) for wb in target],
+                              OptState(m=m, v=v, step=step), *(torch.as_tensor(x) for x in st["batch"]))
+        loss_d.append(abs(float(loss) - st["loss"]))
+        param_d.append(max(float(np.abs(a - b).max()) for pa, pb in zip(mlp_params_to_numpy(new), st["params"])
+                           for a, b in zip(pa, pb)))
+    return {"updates_checked": [st["update"] for st in steps], "loss_max_diff": max(loss_d, default=None),
+            "params_max_diff": max(param_d, default=None), "params_diff_by_update": param_d}
+
+
+def phase_rl_host_train(torch) -> None:
+    """The paper's host trainer on the card; its independent CPU run from the
+    same initial parameters (in a child process beside it) up to the first
+    decision where they part; every RL_HOST_STEP_EVERY-th TD update repeated on
+    the CPU from the card's state; then RL_HOST_PROFILED decisions of the
+    trained learner, updates on, under torch.profiler."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.core.rl.agent import NStepAccumulator
+    from repro_torch.core.rl.env import RepartitionEnv
+    from repro_torch.core.workload import WorkloadSpec
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(_host_train_run, "cpu")
+        t0 = time.perf_counter()
+        card = _host_train_run(None)
+        card_s = time.perf_counter() - t0
+        cpu = cpu_future.result()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _counts()
+    learner, st, cs = card["learner"], card["stats"], cpu["stats"]
+    cfg = learner.cfg
+    stepwise = _steps_on_cpu(cfg, card["steps"])
+
+    # the independent runs, up to the first decision where they part
+    flip = _first_flip(card["log"], cpu["log"])
+    n_eps = RL_HOST_EPISODES if flip is None else sum(k <= flip["decision"] for k in card["resets"]) - 1
+    cut = None if flip is None else flip["decision"]
+
+    def rel(a, b):
+        return max((abs(x - y) / max(abs(y), 1e-300) for x, y in zip(a[:n_eps], b[:n_eps])), default=0.0)
+
+    losses, cpu_losses = np.asarray(st["losses"]), np.asarray(cs["losses"])
+    n = min(len(losses), len(cpu_losses))
+    apart = np.abs(losses[:n] - cpu_losses[:n]) > RL_TD_TOL * np.abs(cpu_losses[:n]).max(initial=1.0)
+    independent = {
+        "episodes_before_first_flip": n_eps, "first_flip": flip,
+        "first_update_whose_loss_parts_by_1e-5": int(np.argmax(apart)) if apart.any() else None,
+        "env_steps": [st["env_steps"], cs["env_steps"]], "updates": [card["updates"], cpu["updates"]],
+        "actions_equal_before_flip": [e[0] for e in card["log"][:cut]] == [e[0] for e in cpu["log"][:cut]],
+        "reward_max_rel": rel(st["episode_rewards"], cs["episode_rewards"]),
+        "proxy_max_rel": rel(st["episode_et_proxy"], cs["episode_et_proxy"]),
+        "cpu_wall_s": cs["wall_seconds"], "cpu_episode_wall_s": cs["episode_wall_seconds"],
+    }
+
+    # RL_HOST_PROFILED decisions of the trained learner, as train_dqn's loop
+    # takes them (act, step, n-step push, one TD update), first unprofiled
+    env = RepartitionEnv(scheduler_name="EDF-SS", spec=WorkloadSpec())
+    nstep = NStepAccumulator(cfg.n_step, cfg.gamma)
+    box = {"obs": env.reset(seed=RL_HOST_EPISODES)}
+
+    def decisions():
+        obs = box["obs"]
+        for _ in range(RL_HOST_PROFILED):
+            a = learner.act(obs, cfg.eps_end)
+            nxt, r, term, trunc, _ = env.step(a)
+            nstep.push(learner, obs, a, r, nxt, term or trunc)
+            learner.maybe_train(1)
+            obs = nxt
+        box["obs"] = obs
+
+    u0 = learner.updates
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decisions()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    u1 = learner.updates
+    prof = _profile(torch, decisions, top=8, host_ops=False)
+    busy = prof["device_busy_ms"] or 0.0
+    row = {
+        "config": {"episodes": RL_HOST_EPISODES, "guide_episodes": RL_HOST_GUIDE,
+                   **{k: getattr(cfg, k) for k in ("n_step", "lr", "target_sync_every", "min_buffer",
+                                                    "batch_size", "eps_decay_episodes", "seed")},
+                   "hidden": list(cfg.hidden)},
+        "call_s": card_s, "wall_s": st["wall_seconds"], "episode_wall_s": st["episode_wall_seconds"],
+        "episode_updates": st["episode_updates"], "env_steps": st["env_steps"],
+        "env_steps_per_s": st["env_steps"] / st["wall_seconds"], "updates": card["updates"],
+        "losses": len(losses), "finite_losses": int(np.isfinite(losses).sum()),
+        "episode_rewards": st["episode_rewards"], "peak_gb": peak_gb,
+        "stepwise_vs_cpu": stepwise, "independent_cpu_run": independent,
+        "profiled_decisions": RL_HOST_PROFILED, "profiled_updates": learner.updates - u1,
+        "unprofiled_updates": u1 - u0, "unprofiled_ms_per_decision": wall_ms / RL_HOST_PROFILED,
+        "launches_per_decision": prof["launches"] / RL_HOST_PROFILED,
+        "device_busy_ms_per_decision": busy / RL_HOST_PROFILED,
+        "device_idle_share": 1 - busy / wall_ms if busy else None, "profile": prof,
+        "model_kernel_launches": counts,
+    }
+    emit("rl_host_train", **row)
+    check(st["episodes"] == RL_HOST_EPISODES and card["updates"] > 0 and len(losses) == card["updates"],
+          f"rl_host_train: {card['updates']} updates, {len(losses)} losses")
+    check(row["finite_losses"] == len(losses) and bool(np.isfinite(st["episode_rewards"]).all()),
+          "rl_host_train: non-finite losses or rewards")
+    check(all(np.isfinite(a).all() for pa in card["params"] for a in pa), "rl_host_train: non-finite parameters")
+    check(learner.device.type == "cuda" and row["profiled_updates"] == RL_HOST_PROFILED,
+          "rl_host_train: the learner is off the card, or the profiled decisions did not all train")
+    check(len(card["steps"]) == card["updates"] // RL_HOST_STEP_EVERY
+          and stepwise["loss_max_diff"] <= RL_TD_TOL and stepwise["params_max_diff"] <= RL_TD_TOL,
+          f"rl_host_train: a TD update on the card against the CPU: {stepwise}")
+    check(independent["actions_equal_before_flip"] and n_eps >= RL_HOST_GUIDE
+          and independent["reward_max_rel"] <= RL_HOST_REWARD_RTOL
+          and independent["proxy_max_rel"] <= RL_HOST_REWARD_RTOL,
+          f"rl_host_train: the card's episodes against the CPU's before they part: {independent}")
+    check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
+
+
+def phase_fleet_dqn(torch) -> None:
+    """evaluate_policy_fleet with the checked-in npz as the registry's "dqn", one
+    Q network a device on the card, against FLEET_GOLDEN; the same days with a
+    decision log, whose greedy actions are held to a CPU learner's."""
+    from repro_torch.core.rl.agent import greedy_policy
+    from repro_torch.core.rl.train import evaluate_policy_fleet
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.cells import result_to_sim_result
+
+    golden = json.loads(FLEET_GOLDEN.read_text())
+    g = golden["run"]
+    params = str(ROOT / g["params"])
+    kw = dict(profiles=g["profiles"], dispatcher=g["dispatcher"], num_iterations=g["num_iterations"],
+              scheduler_name=g["scheduler"], scenario=g["scenario"], seed=g["seed"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = evaluate_policy_fleet(("dqn", {"params_path": params}), **kw)  # device=None: the card
+    wall_s = time.perf_counter() - t0
+    want = [dataclasses.asdict(result_to_sim_result(w)) for w in golden["results"]]
+    got = [dataclasses.asdict(r) for r in got]
+    days = [{"jobs": a["num_jobs"], "repartitions": a["repartitions"], "energy_wh": a["energy_wh"],
+             "within_rtol": PE.values_close(a, b, EVAL_RTOL), "max_rel_diff": PE._max_rel(a, b)}
+            for a, b in zip(got, want, strict=True)]
+    # the same days, every greedy decision logged, against the CPU learner
+    log = PE.DecisionLog(PE.load_learner(params))
+    t0 = time.perf_counter()
+    logged = evaluate_policy_fleet(lambda: greedy_policy(log), **kw)
+    logged_s = time.perf_counter() - t0
+    flips = PE.action_flips(log, PE.load_learner(params, "cpu"))
+    counts = _counts()
+    emit("fleet_dqn", run=g, days=days, wall_s=wall_s, decisions=len(log.records), logged_wall_s=logged_s,
+         logged_equal=[dataclasses.asdict(r) for r in logged] == got, flips=flips[:16], n_flips=len(flips),
+         model_kernel_launches=counts)
+    check(all(d["within_rtol"] for d in days), f"fleet_dqn: days off the golden file: {days}; flips {flips[:8]}")
+    check(not flips and days and len(log.records) > 0, f"fleet_dqn: card and CPU actions differ: {flips[:8]}")
+    check(not any(counts.values()), f"the fleet evaluation launched a model kernel: {counts}")
 
 
 def phase_eval_replay(torch) -> None:

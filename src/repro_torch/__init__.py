@@ -12,7 +12,9 @@ and granite-moe-3b-a800m (:mod:`repro_torch.models`,
 (:mod:`repro_torch.core.batched`); and the on-device DQN repartitioning
 trainer (:mod:`repro_torch.core.rl`, :mod:`repro_torch.optim`,
 :mod:`repro_torch.launch.train_rl`); the evaluation path
-(:mod:`repro_torch.launch.evaluate`); and the LM training path
+(:mod:`repro_torch.launch.evaluate`); the LM training path
 (:mod:`repro_torch.launch.train`: ``loss_fn``, :mod:`repro_torch.distributed`,
-:mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`).
+:mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`); and the paper's host
+DQN trainer (``train_rl --backend host``) with the fleet layer
+(:mod:`repro_torch.fleet`).
 """

@@ -3,8 +3,8 @@
 Host copies of the reference's framework-free modules (the port imports
 nothing of ``repro``):
 
-* :mod:`repro_torch.core.slices`    — Fig. 1 slice/partition model (12 configs)
-* :mod:`repro_torch.core.power`     — Fig. 3 saturating power curve
+* :mod:`repro_torch.core.slices`    — Fig. 1 slice/partition model (12 configs), the A30 table
+* :mod:`repro_torch.core.power`     — Fig. 3 saturating power curve, the A30 and TPU-pod curves
 * :mod:`repro_torch.core.jobs`      — jobs with linear/capped/sublinear elasticity
 * :mod:`repro_torch.core.workload`  — §V-A diurnal Poisson workload generator
 * :mod:`repro_torch.core.scenarios` — named workload scenario registry

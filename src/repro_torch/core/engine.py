@@ -29,10 +29,11 @@ event queue, the event versioning, and decision-point sequencing.
 
 The port's own copy of ``repro.core.engine``.  Heap entries, the tie-break
 counter, the push order and every float operation are the reference's, so
-the same jobs and policy give the same :class:`SimResult` bit for bit.  The
-service layer's operations (``cancel``, ``job_disposition``, the checkpoint
-bytes ``to_snapshot_bytes`` / ``from_snapshot_bytes`` and
-``harvest_completed``) are not copied.
+the same jobs and policy give the same :class:`SimResult` bit for bit.
+``cancel`` and ``job_disposition`` are copied for the fleet layer's
+:class:`~repro_torch.fleet.simulator.FleetStream`; the service layer's
+checkpoint bytes (``to_snapshot_bytes`` / ``from_snapshot_bytes``, the
+pickling hooks) and ``harvest_completed`` are not.
 """
 
 from __future__ import annotations
@@ -234,7 +235,8 @@ class SimulationEngine:
             raise ValueError(
                 f"initial config {cfg0} (from {cfg0_src}) is not in this "
                 f"device's partition table (valid ids {sorted(sim.configs)}); "
-                "pass a valid initial_config"
+                "pass a valid initial_config or wrap the policy in "
+                "repro_torch.fleet.DeviceAdaptedPolicy"
             )
         sim.reset(cfg0)
 
@@ -250,6 +252,10 @@ class SimulationEngine:
 
         self._jobs_by_id: Dict[int, Job] = {}
         self.arrivals_pending = 0
+        # cancellation bookkeeping: ids cancelled before their arrival event
+        # popped (the pop loop skips those), and every id ever cancelled
+        self._cancelled_pending: set = set()
+        self._cancelled_ids: set = set()
         for job in jobs:
             self._register(job)
         self._schedule_policy_timer()
@@ -303,7 +309,70 @@ class SimulationEngine:
         self.stream_open = False
 
     # ------------------------------------------------------------------
-    # manual reconfiguration
+    # cancellation and manual reconfiguration
+
+    def cancel(self, job_id: int) -> str:
+        """Remove a job from the system.
+
+        Returns the disposition:
+
+        * ``"unarrived"`` — the arrival was still pending; it will never
+          enter the system (the queued ARRIVAL event is skipped on pop);
+        * ``"dequeued"`` — the job was waiting unassigned; removed;
+        * ``"preempted"`` — the job was running; it is preempted exactly like
+          any other preemption (device and job preemption counters charged)
+          and removed.  Energy/tardiness stop accruing from the current sim
+          time: energy because the slice leaves the busy set, tardiness
+          because the job leaves ``active``.
+
+        Unknown, completed, or already-cancelled job ids raise
+        :class:`ValueError` naming the sim time, the job id, and the remedy.
+        """
+        if self._awaiting is not None:
+            raise RuntimeError(
+                f"cannot cancel job {job_id} at t={self.sim.t}: an interactive "
+                "decision is pending; call provide_decision() first"
+            )
+        sim = self.sim
+        job = self._jobs_by_id.get(job_id)
+        if job is None or job_id in self._cancelled_ids:
+            state = "already cancelled" if job is not None else "never injected"
+            raise ValueError(
+                f"cannot cancel job {job_id} at sim time t={sim.t}: "
+                f"it was {state}; check `status` for the job's disposition "
+                f"before cancelling"
+            )
+        if job_id in sim.active:
+            was_running = job_id in sim.assignment
+            if was_running:
+                # the existing preemption path: a running job leaving the
+                # assignment counts once on the device and on the job
+                del sim.assignment[job_id]
+                sim.preemptions += 1
+                job.preemptions += 1
+            del sim.active[job_id]
+            disposition = "preempted" if was_running else "dequeued"
+        elif job.completion is not None:
+            raise ValueError(
+                f"cannot cancel job {job_id} at sim time t={sim.t}: it "
+                f"already completed at t={job.completion}; completed jobs "
+                f"cannot be cancelled"
+            )
+        else:
+            # arrival event still pending in the heap: mark it so the pop
+            # loop skips it without opening a decision point
+            self._cancelled_pending.add(job_id)
+            self.arrivals_pending -= 1
+            disposition = "unarrived"
+        self._cancelled_ids.add(job_id)
+        sim.cancelled.append(job)
+        if sim._repartitioning_until is None:
+            sim._reschedule()
+            sim._complete_finished()
+        # version-bump: a live completion/critical prediction may reference
+        # the cancelled job (or a seat freed by it)
+        self._push_followups()
+        return disposition
 
     def reconfigure(self, config_id: int) -> bool:
         """Start a repartition to ``config_id`` now (outside a decision point).
@@ -495,6 +564,11 @@ class SimulationEngine:
             kind = EventKind(kind)
             if kind in (EventKind.COMPLETION, EventKind.CRITICAL) and ver != self._version:
                 continue  # stale prediction, superseded by a later version
+            if kind == EventKind.ARRIVAL and payload in self._cancelled_pending:
+                # cancelled before arrival: the event is dead — skip it
+                # without advancing time or opening a decision point
+                self._cancelled_pending.discard(payload)
+                continue
             break
 
         sim._advance(ev_t)
@@ -605,6 +679,26 @@ class SimulationEngine:
     # ------------------------------------------------------------------
     # observation / results
 
+    def job_disposition(self, job_id: int) -> Optional[str]:
+        """Where a job currently is, or None if unknown.
+
+        One of ``"pending"`` (arrival event still queued), ``"queued"``
+        (arrived, unassigned), ``"running"``, ``"completed"``, or
+        ``"cancelled"``.
+        """
+        job = self._jobs_by_id.get(job_id)
+        if job is None:
+            return None
+        if job_id in self._cancelled_ids:
+            return "cancelled"
+        if job_id in self.sim.assignment:
+            return "running"
+        if job_id in self.sim.active:
+            return "queued"
+        if job.completion is not None:
+            return "completed"
+        return "pending"
+
     def snapshot(self) -> EngineSnapshot:
         """Read-only view of device + queue state (see :class:`EngineSnapshot`)."""
         return EngineSnapshot(
@@ -648,6 +742,10 @@ class SimulationEngine:
             "makespan_min": sim.t,
             "tardiness_integral": sim.tardiness_integral,
         }
+        # only runs with cancellations report them: batch results keep the
+        # reference's key set (the key is absent, not zero)
+        if sim.cancelled:
+            extra["cancelled_jobs"] = float(len(sim.cancelled))
         return SimResult(
             energy_wh=sim.energy_wh,
             avg_tardiness=total_tard / m,

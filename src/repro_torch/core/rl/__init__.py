@@ -11,11 +11,11 @@ The port of ``repro.core.rl``:
   accumulator and :func:`greedy_policy`, the evaluation-mode policy;
 * :mod:`repro_torch.core.rl.batched_train` — :func:`train_dqn_batched`, B
   rollouts and the learner advancing together on one device;
-* :mod:`repro_torch.core.rl.train` — :func:`evaluate_policy`, day
-  simulations under a policy on the event-driven simulator.
-
-The host training loop (``train_dqn``) and ``evaluate_policy_fleet`` are not
-ported yet.
+* :mod:`repro_torch.core.rl.train` — :func:`train_dqn`, the paper's host
+  trainer over :class:`RepartitionEnv` (or, ``backend="batched"``, the
+  on-device one), and :func:`evaluate_policy` / :func:`evaluate_policy_fleet`,
+  day simulations under a policy on the event-driven simulator, one GPU or
+  a fleet.
 """
 
 from repro_torch.core.rl.agent import DQNAgent, NStepAccumulator, greedy_policy
@@ -28,12 +28,19 @@ from repro_torch.core.rl.batched_train import (
 from repro_torch.core.rl.dqn import DQNConfig, DQNLearner, ReplayBuffer, epsilon_by_step
 from repro_torch.core.rl.env import (
     FEATURE_DIM,
+    FLEET_FEATURE_DIM,
     M_JOBS,
     RepartitionEnv,
     RewardWeights,
+    fleet_state_features,
     state_features,
 )
-from repro_torch.core.rl.train import evaluate_policy
+from repro_torch.core.rl.train import (
+    TrainStats,
+    evaluate_policy,
+    evaluate_policy_fleet,
+    train_dqn,
+)
 
 __all__ = [
     "DQNConfig",
@@ -41,10 +48,12 @@ __all__ = [
     "ReplayBuffer",
     "epsilon_by_step",
     "FEATURE_DIM",
+    "FLEET_FEATURE_DIM",
     "M_JOBS",
     "RewardWeights",
     "RepartitionEnv",
     "state_features",
+    "fleet_state_features",
     "DQNAgent",
     "NStepAccumulator",
     "greedy_policy",
@@ -52,5 +61,8 @@ __all__ = [
     "BatchedTrainStats",
     "device_observations",
     "train_dqn_batched",
+    "TrainStats",
+    "train_dqn",
     "evaluate_policy",
+    "evaluate_policy_fleet",
 ]

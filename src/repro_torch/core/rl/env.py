@@ -5,9 +5,10 @@ binned features, m = 8), the bin tables and sentinels, the ET-scalarized
 reward, :func:`state_features` (the observation the greedy agent acts on) and
 the incremental :class:`RepartitionEnv` over the event-driven engine, plus
 :func:`inv_mean_durations`, the per-job coefficient the batched env and the
-on-device trainer read.  The fleet features (``fleet_state_features``) and
-``make_batched_env`` are not copied; the port's
-:class:`repro_torch.core.batched.BatchedRepartitionEnv` is built directly.
+on-device trainer read, and the fleet-aware observation
+(:func:`fleet_state_features`).  ``make_batched_env`` is not copied; the
+port's :class:`repro_torch.core.batched.BatchedRepartitionEnv` is built
+directly.
 """
 
 from __future__ import annotations
@@ -23,11 +24,15 @@ from repro_torch.core.slices import ALL_SLICE_SIZES
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.metrics import SimResult
     from repro_torch.core.simulator import MIGSimulator
+    from repro_torch.fleet.simulator import FleetView
 
 __all__ = [
     "M_JOBS",
     "FEATURE_DIM",
+    "FLEET_EXTRA_FEATURES",
+    "FLEET_FEATURE_DIM",
     "state_features",
+    "fleet_state_features",
     "RewardWeights",
     "RepartitionEnv",
     "inv_mean_durations",
@@ -67,6 +72,35 @@ def state_features(t: float, sim: "MIGSimulator", m: int = M_JOBS) -> np.ndarray
             feats.append(1.0)  # "no job" sentinel: max slack
             feats.append(0.0)  # zero duration
     return np.asarray(feats, dtype=np.float32)
+
+
+# Fleet-aware observation: the per-device features above plus two fleet
+# signals read off the dispatch-time load trace (repro_torch.fleet.FleetView) —
+# this device's share of the fleet backlog, and the normalized fleet-wide
+# backlog.  The 2+2m core layout is unchanged, so a single-GPU policy can be
+# warm-started by zero-padding and a fleet policy degrades gracefully when
+# the fleet context is absent (both extras read 0.0).
+FLEET_EXTRA_FEATURES = 2
+FLEET_FEATURE_DIM = FEATURE_DIM + FLEET_EXTRA_FEATURES
+
+
+def fleet_state_features(
+    t: float,
+    sim: "MIGSimulator",
+    device_index: int,
+    view: "FleetView | None",
+    m: int = M_JOBS,
+) -> np.ndarray:
+    """Per-device observation inside a fleet, in [0, 1]^FLEET_FEATURE_DIM."""
+    base = state_features(t, sim, m)
+    if view is None:
+        share, pressure = 0.0, 0.0
+    else:
+        share = view.load_share(device_index, t)
+        pressure = view.total_load_norm(t)
+    return np.concatenate(
+        [base, np.asarray([share, pressure], dtype=np.float32)]
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,8 +27,7 @@ integration, assignments, preemption accounting — and the policy zoo.
 
 The simulator is deterministic given the job list and policy.
 
-The port's own copy of ``repro.core.simulator`` (all of it but the list of
-jobs the service layer's ``cancel`` removes): the batched simulator
+The port's own copy of ``repro.core.simulator``: the batched simulator
 (:mod:`repro_torch.core.batched`) reads its constants and closed-form
 policies, the evaluation path (:mod:`repro_torch.core.rl.train`,
 :mod:`repro_torch.sweep.cells`) runs :class:`MIGSimulator`.
@@ -218,6 +217,10 @@ class MIGSimulator:
         self.active: Dict[int, Job] = {}
         self.assignment: Assignment = {}
         self.completed: List[Job] = []
+        # jobs removed by SimulationEngine.cancel(): out of the system, never
+        # completed — they stop drawing energy/tardiness from the cancel
+        # instant and are reported via SimResult.extra["cancelled_jobs"]
+        self.cancelled: List[Job] = []
         self.energy_wh = 0.0
         self.tardiness_integral = 0.0
         self.preemptions = 0

@@ -13,10 +13,9 @@ reconfiguration between them destroys/creates only the non-shared instances
 (:func:`transition`) — jobs on shared instances keep running (DESIGN.md §7).
 
 The port's own copy of ``repro.core.slices``: the slice and partition types,
-the placement rule, the Fig. 1 table, the transition plan, the free-slot
-geometry the event engine's snapshots read, and the table check.  The A30
-table and the fleet-wide fragmentation ratio belong to the fleet layer and
-are not copied.
+the placement rule, the Fig. 1 table, the A30 table of the fleet layer, the
+transition plan, the free-slot geometry the event engine's snapshots read,
+the fleet-wide fragmentation ratio, and the table check.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ __all__ = [
     "Partition",
     "TransitionPlan",
     "MIG_CONFIGS",
+    "A30_CONFIGS",
     "NUM_CONFIGS",
     "TOTAL_SLOTS",
     "ALL_SLICE_SIZES",
@@ -40,6 +40,7 @@ __all__ = [
     "validate_config_table",
     "FreeSlotGeometry",
     "free_slot_geometry",
+    "fleet_fragmentation",
     "table_slice_sizes",
 ]
 
@@ -208,6 +209,21 @@ MIG_CONFIGS: Dict[int, Partition] = {
 }
 
 NUM_CONFIGS = len(MIG_CONFIGS)
+
+# ----------------------------------------------------------------------
+# A30-class device (24 GB, 4 compute slots): the second fleet profile.
+# NVIDIA's A30 MIG geometry: 1g.6gb, 2g.12gb, 4g.24gb; four valid layouts.
+
+A30_S1_6 = SliceType(1, 6)
+A30_S2_12 = SliceType(2, 12)
+A30_S4_24 = SliceType(4, 24)
+
+A30_CONFIGS: Dict[int, Partition] = {
+    1: _mk(1, A30_S4_24),
+    2: _mk(2, A30_S2_12, A30_S2_12),
+    3: _mk(3, A30_S2_12, A30_S1_6, A30_S1_6),
+    4: _mk(4, A30_S1_6, A30_S1_6, A30_S1_6, A30_S1_6),
+}
 
 
 def config(config_id: int) -> Partition:
@@ -407,6 +423,20 @@ def free_slot_geometry(
     )
 
 
+def fleet_fragmentation(geometries: Sequence[FreeSlotGeometry]) -> float:
+    """Free-capacity-weighted fleet fragmentation ratio in [0, 1].
+
+    ``1 - sum(max placeable) / sum(free)`` over the fleet — equivalently
+    the per-device ratios weighted by each device's free slots, so a large
+    idle device dominates a shredded small one.  0 when nothing is free.
+    """
+    free = sum(g.free_slots for g in geometries)
+    if free == 0:
+        return 0.0
+    placeable = sum(g.max_placeable_slots for g in geometries)
+    return 1.0 - placeable / free
+
+
 def validate_config_table(
     configs: Dict[int, Partition],
     max_slots: int,
@@ -463,3 +493,4 @@ def validate_config_table(
 
 # A100 Fig. 1 table: at most one 1g.10gb slice per configuration (paper §III-A)
 validate_config_table(MIG_CONFIGS, TOTAL_SLOTS, 40, max_1g10_slices=1, name="A100 Fig. 1")
+validate_config_table(A30_CONFIGS, 4, 24, name="A30")

@@ -8,9 +8,10 @@ The port's own copy of ``repro.forecast``:
 * :mod:`repro_torch.forecast.policy` — :class:`ForecastPolicy`, the MPC
   repartitioning controller registered as ``"forecast"`` in
   :data:`repro_torch.sweep.cells.POLICIES`, the controller the DQN is raced
-  against.
+  against, and :func:`device_forecast_factory`, a native controller per
+  fleet member (:mod:`repro_torch.fleet`).
 
-All of it is float64 host code; the fleet factory is not copied.
+All of it is float64 host code.
 """
 
 from repro_torch.forecast.forecaster import (
@@ -23,6 +24,7 @@ from repro_torch.forecast.forecaster import (
 from repro_torch.forecast.policy import (
     EFFECTIVE_THROUGHPUT,
     ForecastPolicy,
+    device_forecast_factory,
     expected_throughput,
 )
 
@@ -34,5 +36,6 @@ __all__ = [
     "fit_scenario_forecaster",
     "EFFECTIVE_THROUGHPUT",
     "ForecastPolicy",
+    "device_forecast_factory",
     "expected_throughput",
 ]

@@ -29,8 +29,8 @@ The fluid model is a first-order backlog estimate, deliberately far cheaper
 than the event simulator it approximates, because it runs |configs| ×
 (horizon/step) times per decision.
 
-The port's own copy of ``repro.forecast.policy``.  The fleet factory
-``device_forecast_factory`` is not copied (the port has no fleet layer).
+The port's own copy of ``repro.forecast.policy``, with the fleet factory
+:func:`device_forecast_factory`.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ __all__ = [
     "erlang_c_wait",
     "DEFAULT_CANDIDATES",
     "ForecastPolicy",
+    "device_forecast_factory",
 ]
 
 
@@ -650,3 +651,26 @@ class ForecastPolicy:
         a = self.et_alpha
         return (a * energy_wh + avg_tardiness) / (a + 1.0)
 
+
+def device_forecast_factory(forecaster_factory=None, **policy_kwargs):
+    """Per-device ``(index, profile) -> ForecastPolicy`` fleet factory.
+
+    Builds a *native* forecast controller for every fleet member — candidate
+    configurations and the power curve come from the device's own
+    :class:`~repro_torch.fleet.devices.DeviceProfile`, so an A30 evaluates its
+    own four layouts instead of having A100-space choices translated after
+    the fact.  ``forecaster_factory()`` supplies a fresh forecaster per device
+    (policies and their EWMA state must never be shared across devices);
+    ``None`` gives each device the default paper-diurnal day model.
+    """
+
+    def factory(index: int, profile) -> ForecastPolicy:
+        forecaster = forecaster_factory() if forecaster_factory is not None else None
+        return ForecastPolicy(
+            forecaster=forecaster,
+            configs=profile.configs,
+            power=profile.power,
+            **policy_kwargs,
+        )
+
+    return factory

@@ -1,10 +1,11 @@
 """The queue-pressure repartitioning heuristic (the registry's ``"heuristic"``).
 
 The port's own copy of the one part of ``repro.launch.cluster_sim`` that the
-policy registry reads: :class:`QueueHeuristicPolicy`.  The TPU-pod day
-(``run_days``, ``main``), ``FailureAwarePolicy`` and the pod power curve
-``TPU_V5E_POD`` drive the reference's cluster adaptation, which the port does
-not have; they are not copied.
+policy registry and the host trainer's guide (``train_rl --backend host``)
+read: :class:`QueueHeuristicPolicy`.  The TPU-pod day (``run_days``,
+``main``) and ``FailureAwarePolicy`` drive the reference's cluster
+adaptation (``repro.cluster``), which the port does not have; they are not
+copied.
 """
 
 from __future__ import annotations

@@ -17,11 +17,18 @@ rows.  It adds nothing the reference lacks::
 * ``--table3`` runs Table III's cells (``WorkloadSpec`` days, seeds from
   40 000, ``max(int(10 * scale), 2)`` a model): NoMIG, static config 3,
   DayNight, the queue heuristic and, with ``--params``, the registry's
-  ``"dqn"`` (event cadence), and prints ET and the improvement over NoMIG;
-* ``--replay`` runs every cell of a checked-in sweep baseline and compares
-  its result with the reference's rule (``rtol`` relative to the larger
-  magnitude, at least 1; ``elapsed_s`` skipped), integers,
-  ``config_trace`` and ``util_histogram`` exactly.
+  ``"dqn"`` (event cadence), and prints ET and the improvement over NoMIG.
+  After ``python -m repro_torch.launch.train_rl --backend host --out P.npz``
+  it is the paper's headline experiment
+  (``examples/dynamic_repartitioning_day.py``);
+* ``--replay`` runs every cell of checked-in sweep baselines and compares
+  each result with the reference's rule (``rtol`` relative to the larger
+  magnitude, at least 1; ``elapsed_s`` skipped), integers (``dispatch_counts``
+  and the devices' tenant counts among them), ``config_trace`` and
+  ``util_histogram`` exactly.  The checked-in files it takes:
+  ``smoke_sweep``, ``scenario_matrix``, ``repartition_policies``,
+  ``repartition_modes`` and the fleet rows of ``fleet_scaling``,
+  ``dispatchers`` and ``serving_matrix`` (``benchmarks/baselines/*.jsonl``).
 
 The Q network runs on ``--device`` (default: the CUDA card; the command
 raises without one, ``--device cpu`` on request); everything else is float64

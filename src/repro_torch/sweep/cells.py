@@ -3,30 +3,32 @@
 A *cell* is one simulator run, described entirely by JSON-serializable data:
 
 ``{experiment, group, scheduler, policy, policy_kwargs, workload | scenario,
-seed, mig_enabled, repartition_mode}``
+seed, mig_enabled, repartition_mode[, fleet]}``
 
 * ``experiment`` names the grid and ``group`` the aggregation bucket inside it;
 * ``policy`` + ``policy_kwargs`` name a registered repartitioning policy
   (:data:`POLICIES`);
 * ``workload`` is the fully-resolved :class:`WorkloadSpec` field dict, or
   ``scenario`` a registered scenario with its resolved kwargs;
-* ``seed`` drives the job stream, making the cell deterministic.
+* ``seed`` drives the job stream, making the cell deterministic;
+* ``fleet`` (fleet cells only) lists the devices by profile name, the
+  dispatcher and what it observes (``info``).
 
 The port's own slim copy of ``repro.sweep.cells``: the registry,
-:func:`make_cell` and :func:`make_scenario_cell`, and :func:`run_cell` for
-single-GPU cells on the oracle (the event-driven :class:`MIGSimulator`),
-returning the reference's result dict.
-The sweep engine around it (content hashes, the on-disk cache, worker
-pools) is not copied: the port runs cells inline.  Fleet cells and
-``backend == "batched"`` cells are refused (the fleet layer and the batched
-sweep route are not ported).
+:func:`make_cell`, :func:`make_scenario_cell` and :func:`make_fleet_cell`,
+and :func:`run_cell` on the oracle (the event-driven :class:`MIGSimulator`,
+or :class:`repro_torch.fleet.FleetSimulator` for a cell with a ``fleet``
+key), returning the reference's result dict.  The sweep engine around it
+(content hashes, the on-disk cache, worker pools, the grids) is not copied:
+the port runs cells inline.  ``backend == "batched"`` cells are refused (the
+batched sweep route is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 from repro_torch.core.metrics import SimResult, TenantSLOStats
 from repro_torch.core.scenarios import generate_scenario, resolve_scenario_kwargs
@@ -42,11 +44,15 @@ from repro_torch.core.simulator import (
 from repro_torch.core.workload import WorkloadSpec, generate_jobs
 from repro_torch.device import DeviceLike, resolve_device
 
+if TYPE_CHECKING:  # pragma: no cover
+    import torch
+
 __all__ = [
     "POLICIES",
     "cell_jobs",
     "cell_repartition_mode",
     "make_cell",
+    "make_fleet_cell",
     "make_policy",
     "make_scenario_cell",
     "result_to_sim_result",
@@ -252,6 +258,59 @@ def make_scenario_cell(
     )
 
 
+def make_fleet_cell(
+    *,
+    experiment: str,
+    group: str,
+    profiles: Sequence[str],
+    dispatcher: str,
+    scheduler: str,
+    scenario: str,
+    seed: int,
+    scenario_kwargs: Optional[Mapping[str, Any]] = None,
+    policy: str = "static",
+    policy_kwargs: Optional[Mapping[str, Any]] = None,
+    mig_enabled: bool = True,
+    dispatch_info: str = "online",
+    repartition_mode: str = "partial",
+) -> Cell:
+    """A fleet cell: N devices (by profile name) behind a dispatcher.
+
+    The extra ``fleet`` key routes :func:`run_cell` through
+    :class:`repro_torch.fleet.FleetSimulator`.  Every device runs
+    ``scheduler`` and an independent instance of the cell's repartitioning
+    policy.  ``dispatch_info`` selects what the dispatcher observes —
+    ``"online"`` (real co-advanced engine state, the default) or ``"fluid"``
+    (the legacy backlog-estimate pre-split); the value always enters the
+    cell, as the reference's ``CellSpec`` writes it.
+    """
+    profiles = tuple(profiles)
+    if not profiles:
+        raise ValueError("fleet_profiles must name at least one device")
+    if scenario is None:
+        raise ValueError("fleet cells take a scenario stream, not a raw workload")
+    if dispatcher is None:
+        raise ValueError("fleet cells require a dispatcher")
+    cell = make_cell(
+        experiment=experiment,
+        group=group,
+        scheduler=scheduler,
+        seed=seed,
+        scenario=scenario,
+        scenario_kwargs=scenario_kwargs,
+        policy=policy,
+        policy_kwargs=policy_kwargs,
+        mig_enabled=mig_enabled,
+        repartition_mode=repartition_mode,
+    )
+    cell["fleet"] = {
+        "devices": [{"profile": p} for p in profiles],
+        "dispatcher": dispatcher,
+        "info": dispatch_info,
+    }
+    return cell
+
+
 # ----------------------------------------------------------------------
 # execution
 
@@ -305,6 +364,64 @@ def _result_dict(
     return out
 
 
+def _run_fleet_cell(
+    cell: Cell,
+    policy_factory: Optional[Callable[[], RepartitionPolicy]],
+    device: torch.device,
+) -> Dict[str, Any]:
+    from repro_torch.fleet import FleetDeviceSpec, FleetSimulator, FleetSpec
+
+    f = cell["fleet"]
+    spec = FleetSpec(
+        devices=tuple(
+            FleetDeviceSpec(
+                profile=d["profile"],
+                scheduler=d.get("scheduler"),
+                initial_config=d.get("initial_config"),
+            )
+            for d in f["devices"]
+        ),
+        dispatcher=f["dispatcher"],
+        scheduler=cell["scheduler"],
+        dispatch_info=f.get("info", "online"),
+        repartition_mode=cell_repartition_mode(cell),
+    )
+    if policy_factory is not None:
+        def per_device_policy(i, prof):
+            return policy_factory()
+    else:
+        def per_device_policy(i, prof):
+            # independent instance per device: policies carry run state
+            return make_policy(cell["policy"], _cell_policy_kwargs(cell), device=device)
+
+    t0 = time.perf_counter()
+    jobs = cell_jobs(cell)
+    fsim = FleetSimulator(spec, mig_enabled=cell["mig_enabled"])
+    fres = fsim.run(jobs, policy_factory=per_device_policy)
+
+    util: Dict[int, float] = {}
+    for sim in fsim.sims:
+        for k, v in sim.util_histogram.items():
+            util[k] = util.get(k, 0.0) + v
+    out = _result_dict(fres.aggregate, util, [], t0)
+    out["dispatch_counts"] = list(fres.dispatch_counts)
+    devices = []
+    for d, r in zip(f["devices"], fres.per_device, strict=True):
+        entry = {
+            "profile": d["profile"],
+            "num_jobs": r.num_jobs,
+            "energy_wh": r.energy_wh,
+            "avg_tardiness": r.avg_tardiness,
+            "repartitions": r.repartitions,
+        }
+        if r.tenants:  # serving cells: per-device SLO breakdown
+            entry["tenants"] = _tenants_dict(r)
+            entry["slo_attainment"] = r.slo_attainment
+        devices.append(entry)
+    out["devices"] = devices
+    return out
+
+
 def run_cell(
     cell: Cell,
     policy_factory: Optional[Callable[[], RepartitionPolicy]] = None,
@@ -314,7 +431,10 @@ def run_cell(
     """Execute one cell on the oracle; returns the reference's result dict.
 
     ``policy_factory`` overrides the registry lookup (e.g. a greedy agent on
-    a learner already in memory).  ``device`` is where a registry DQN's Q
+    a learner already in memory).  A cell with a ``fleet`` key runs through
+    :class:`repro_torch.fleet.FleetSimulator` (one policy instance a device)
+    and reports the fleet aggregate in the standard fields, plus
+    ``dispatch_counts`` and ``devices``.  ``device`` is where a registry DQN's Q
     network runs: ``None`` is the CUDA card and raises without one; the CPU
     runs only on ``device="cpu"``.
     """
@@ -326,10 +446,7 @@ def run_cell(
             "oracle) or use repro_torch.core.batched.simulate_batch directly"
         )
     if "fleet" in cell:
-        raise NotImplementedError(
-            "fleet cells need the fleet layer, which the port does not have "
-            "yet; only single-GPU cells run here"
-        )
+        return _run_fleet_cell(cell, policy_factory, dev)
     jobs = cell_jobs(cell)
     if policy_factory is not None:
         policy = policy_factory()

@@ -1252,3 +1252,126 @@ def test_serving_day_on_the_card_machine_matches_the_golden_file(card):
     assert values_close(got, want, 1e-9) and _exact_part(got) == _exact_part(want)
     assert {n: (t["jobs"], t["attained"]) for n, t in got["tenants"].items()} == {
         n: (t["jobs"], t["attained"]) for n, t in want["tenants"].items()}
+
+
+# ------------------------- the host trainer and the fleet ---------------------
+# repro_torch.core.rl.train.train_dqn (the paper's host loop) and the fleet
+# layer's DQN evaluation with the Q networks on the card, against the port's
+# CPU runs and tests/data/torch_fleet_golden.json
+
+
+def _host_train_recording(log):
+    from repro_torch.core.rl import train as PT
+
+    class Recording(PT.DQNLearner):
+        def act(self, state, epsilon):  # the base act's draws and choice, recorded
+            if self._rng.uniform() < epsilon:
+                a = int(self._rng.integers(0, self.cfg.num_actions))
+                log.append((a, None))
+                return a
+            q = self.q(state)
+            log.append((int(np.argmax(q)), q))
+            return log[-1][0]
+
+    return Recording
+
+
+def test_host_train_td_updates_on_the_card_match_the_cpu(card):
+    import dataclasses
+
+    from repro_torch.core.rl import dqn as PD
+    from repro_torch.launch import train_rl
+
+    cfg = dataclasses.replace(train_rl.host_dqn_config(400), min_buffer=256)  # the example's learner
+    rng = np.random.default_rng(0)
+    n = 512
+    s, s2 = rng.uniform(size=(2, n, cfg.state_dim)).astype(np.float32)
+    a = rng.integers(0, cfg.num_actions, size=n)
+    r = rng.normal(size=n).astype(np.float32)
+    done = rng.uniform(size=n) < 0.05
+    g = (cfg.gamma ** rng.integers(1, cfg.n_step + 1, size=n)).astype(np.float32)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        learner = PD.DQNLearner(cfg, device=dev)
+        for i in range(n):
+            learner.observe(s[i], a[i], r[i], s2[i], done[i], g[i])
+        losses = [learner.maybe_train(1) for _ in range(4)]
+        runs.append((losses, PD.mlp_params_to_numpy(learner.params), learner.device.type))
+    (card_losses, card_params, t), (cpu_losses, cpu_params, _) = runs
+    assert t == "cuda" and np.isfinite(card_losses).all()
+    assert np.abs(np.asarray(card_losses) - np.asarray(cpu_losses)).max() <= 1e-5
+    for (cw, cb), (pw, pb) in zip(card_params, cpu_params):
+        assert np.abs(cw - pw).max() <= 1e-5 and np.abs(cb - pb).max() <= 1e-5
+
+
+def test_host_train_episodes_on_the_card_match_the_cpu(card, monkeypatch):
+    """Two episodes (one guided) of a 10-hour day with a small learner: the
+    same actions, rewards and losses as the CPU up to the first greedy flip,
+    which may only fall between Q values 1e-5 of their size apart."""
+    from repro_torch.core.rl import dqn as PD
+    from repro_torch.core.rl import train as PT
+    from repro_torch.core.rl.env import FEATURE_DIM
+    from repro_torch.core.workload import WorkloadSpec
+    from repro_torch.launch.cluster_sim import queue_heuristic_policy
+
+    cfg = PD.DQNConfig(state_dim=FEATURE_DIM, hidden=(64, 64), n_step=3, lr=3e-4, batch_size=32,
+                       min_buffer=64, target_sync_every=25, eps_decay_episodes=2, seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        log = []
+        monkeypatch.setattr(PT, "DQNLearner", _host_train_recording(log))
+        learner, stats = PT.train_dqn(num_episodes=2, spec=WorkloadSpec(horizon_min=600.0), dqn_config=cfg,
+                                      seed=2, guide=queue_heuristic_policy(), guide_episodes=1, device=dev)
+        out[dev] = (learner, stats, log)
+    (cl, cs, clog), (pl, ps, plog) = out["cuda"], out["cpu"]
+    assert cl.device.type == "cuda" and cl.updates > 0
+    flip = next((i for i, (x, y) in enumerate(zip(clog, plog)) if x[0] != y[0]), None)
+    if flip is not None:
+        q = clog[flip][1]
+        assert q is not None and plog[flip][1] is not None
+        top = np.sort(q)
+        assert top[-1] - top[-2] <= 1e-5 * max(np.abs(q).max(), 1.0), (flip, top[-2:])
+        return
+    assert cs.env_steps == ps.env_steps and cl.updates == pl.updates
+    assert cs.episode_rewards == pytest.approx(ps.episode_rewards, rel=1e-9)
+    assert cs.episode_et_proxy == pytest.approx(ps.episode_et_proxy, rel=1e-9)
+    assert np.abs(np.asarray(cs.losses) - np.asarray(ps.losses)).max() <= 1e-5 * np.abs(ps.losses).max()
+    for (cw, cb), (pw, pb) in zip(PD.mlp_params_to_numpy(cl.params), PD.mlp_params_to_numpy(pl.params)):
+        assert np.abs(cw - pw).max() <= 1e-5 * np.abs(pw).max()
+        assert np.abs(cb - pb).max() <= 1e-5 * max(np.abs(pb).max(), 1e-30)
+
+
+def test_fleet_dqn_day_on_the_card_matches_the_golden_file(card):
+    """The golden file's first day (2xA100+2xA30, state-aware, the registry's
+    "dqn" on the checked-in npz, one Q network a device on the card) equals the
+    reference's result; where it would not, every difference must trace to a
+    greedy flip between Q values 1e-5 of their size apart."""
+    import json
+
+    from repro_torch.core.rl.agent import greedy_policy
+    from repro_torch.core.rl.train import evaluate_policy_fleet
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.cells import make_fleet_cell, run_cell
+
+    golden = json.loads((Path(__file__).resolve().parent / "data" / "torch_fleet_golden.json").read_text())
+    g = golden["run"]
+    params = str(BASELINES.parents[1] / g["params"])
+    cell = make_fleet_cell(experiment="evaluate_policy_fleet", group="dqn", profiles=g["profiles"],
+                           dispatcher=g["dispatcher"], scheduler=g["scheduler"], scenario=g["scenario"],
+                           seed=g["seed"], policy="dqn", policy_kwargs={"params_path": params})
+    got = run_cell(cell)  # device=None: the card
+    got.pop("elapsed_s")
+    want = golden["results"][0]
+    equal = (PE.values_close(got, want, 1e-9) and PE._exact_part(got) == PE._exact_part(want)
+             and got["dispatch_counts"] == want["dispatch_counts"])
+    log = PE.DecisionLog(PE.load_learner(params))
+    evaluate_policy_fleet(lambda: greedy_policy(log), profiles=g["profiles"], dispatcher=g["dispatcher"],
+                          num_iterations=1, scheduler_name=g["scheduler"], scenario=g["scenario"],
+                          seed=g["seed"])
+    flips = PE.action_flips(log, PE.load_learner(params, "cpu"))
+    assert len(log.records) > 0
+    if equal:
+        assert flips == []
+    else:
+        assert flips and all(f["q_gap"] <= 1e-5 * max(np.abs(log.records[f["decision"]][2]).max(), 1.0)
+                             for f in flips), flips
