@@ -137,7 +137,8 @@ kernel of the four (its step is batched torch ops):
 31. sim_parity — ``simulate_batch`` on the card for the eight rows of
               tests/test_batched.py's agreement matrix (6 seeds a row, load
               0.2; rows of one policy kind and mode in one batch), held to
-              the port's CPU run on the same inputs and to the JAX
+              the port's CPU run on the same inputs (a child process a
+              batch, beside the card's runs) and to the JAX
               reference's aggregates in tests/data/torch_sim_golden.json
               (integers exact; the bars of tests/test_torch_sim.py); the
               largest difference of each aggregate per row.
@@ -209,10 +210,12 @@ the card (no kernel of the four):
               (benchmarks/baselines/{smoke_sweep, scenario_matrix,
               repartition_policies, repartition_modes}.jsonl and the fleet
               rows of {fleet_scaling, dispatchers, serving_matrix}.jsonl, 518
-              rows) through the port's ``run_cell``; per file the rows, the
-              rows within rtol 1e-9 (the integers, ``dispatch_counts``, the
-              devices' tenants, ``config_trace`` and ``util_histogram``
-              exact), the largest relative difference and the seconds; the
+              rows) as stored, through the port's ``run_cell`` on the sweep's
+              worker processes (one ``run_cells`` call, no cache); per file
+              the rows, the rows within rtol 1e-9 (the
+              integers, ``dispatch_counts``, the devices' tenants,
+              ``config_trace`` and ``util_histogram`` exact), the largest
+              relative difference; the seconds of all seven; the
               forecaster's fitted coefficients against the reference's
               (tests/data/torch_eval_forecast_golden.json). Any row off fails.
 37. fleet_dqn — ``evaluate_policy_fleet`` with the checked-in npz as the
@@ -243,19 +246,56 @@ the card (no kernel of the four):
               tests/data/torch_serving_golden.json (integers, tenant counts,
               trace and histogram exact, floats within rtol 1e-9).
 
+Then the sweep engine (``repro_torch.sweep``: content hashes, the on-disk
+cache, the spawn worker pool, the 14 grids, the batched route), each phase in
+a temporary working directory removed afterwards, with min(8, cores) worker
+processes; tests/torch_sweep_golden.py holds the inputs and comparisons:
+
+41. sweep_baselines — the seven checked-in baselines (518 rows) at scale
+              0.1: their cells computed in one ``run_cells`` call on the
+              workers (a spawned worker takes ~10 s to import torch on the
+              card's machine, so each phase starts one pool), then each grid
+              through ``run_grid`` from the cache, its artifact against its
+              file as ``python -m repro_torch.sweep --check-baseline``
+              compares them (every hash found, rtol 1e-9); the seconds and
+              cells/s; then ``smoke`` again, every cell from the cache.
+42. sweep_paper — the seven paper grids (Tables II-III, Figs. 4, 6-11) at
+              scale 1.0, computed likewise in one pool and read through
+              ``run_grid``, against the reference's rows in
+              tests/data/torch_sweep_golden.json (cells, hashes, rows within
+              rtol 1e-9, integers exact); then with the checked-in DQN
+              parameters at artifacts/dqn_params.npz, Table III and Fig. 11
+              through ``run_grid`` in this process, the registry DQN's Q
+              network on the card (a row off the golden file fails, with
+              every decision that differs from a CPU learner's and its Q
+              gap); the seconds, the cells, the workers; one DQN day under
+              the profiler (the Q network's launches, device time).
+43. sweep_batched — the golden file's batched cells (static config 3,
+              nomig and daynight x 64 paper-diurnal days under EDF-FS)
+              through ``run_cells``: 3 ``simulate_batch`` groups on the card,
+              held to the port's CPU run of the same cells (a child process
+              a group, beside the card's) and to the reference's results (the
+              bars of tests/test_torch_sim.py), then to the oracle (``num_jobs``
+              and ``repartitions`` exact, each group's means within
+              BATCHED_SIM.md §4, a rollout outside §4 only where the
+              reference's is too; run on the cores the card's loop and the
+              CPU children leave); cells/s of the batched route and of the
+              oracle; one group's step under the profiler (launches, device
+              time, idle share).
+
 Then the training path (``repro_torch.launch.train``: ``loss_fn`` with the
 chunked softmax, ``make_train_step``, ``SyntheticLM``, the checkpoint store),
 which trains through autograd on the plain versions at ``impl="ref"``, as the
 reference does (the four kernels are forward-only and stay off it):
 
-41. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
+44. train_parity — for gemma3-1b, jamba, xlstm and granite at their smoke
               configs in fp32 (granite with 2 microbatches), one
               ``make_train_step`` step from the same parameters and non-zero
               optimiser state on the same ``SyntheticLM`` batch, on the
               card and on the CPU: loss and grad norm within 1e-5 relative,
               every parameter within 1e-5 of its leaf's largest, m and v
               within 1e-4; the worst leaf of each arch.
-42. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
+45. train — ``train("gemma3_1b", smoke=False)`` at the reference's defaults
               (global batch 8, sequence 256, bf16; 0.9998 B parameters) for 6
               steps with a checkpoint every 3 into a temporary directory
               (its free disk first); then step 6 deleted and ``train`` again,
@@ -577,6 +617,16 @@ SERVING_CELL = {"experiment": "t", "group": "g", "seed": 11, "scenario": "multi-
                 "scenario_kwargs": {"horizon_min": 1440.0, "load_scale": 1.0},
                 "policy": "static", "policy_kwargs": {"config_id": 3}}
 
+# the sweep engine: the seven checked-in baselines (grid -> file stem) at the
+# scale they were written at, and the worker processes of every sweep phase
+BASELINES_DIR = ROOT / "benchmarks" / "baselines"
+SWEEP_BASELINES = {"smoke": "smoke_sweep", "scenario_matrix": "scenario_matrix",
+                   "repartition_policies": "repartition_policies", "repartition_modes": "repartition_modes",
+                   "fleet_scaling": "fleet_scaling", "dispatchers": "dispatchers",
+                   "serving_matrix": "serving_matrix"}
+SWEEP_BASELINE_SCALE = 0.1
+SWEEP_WORKERS = min(8, os.cpu_count() or 1)
+
 # the training path: card against CPU at each ported arch's smoke config in
 # fp32 (granite with 2 microbatches), one step from a non-zero optimiser state
 TRAIN_PARITY_ARCHS = [("gemma3_1b", 1), (JAMBA, 1), (XLSTM, 1), (GRANITE, 2)]
@@ -651,10 +701,17 @@ def main() -> int:
     phase_rl_train(torch)
     phase_rl_host_train(torch)
     phase_eval_replay(torch)
-    phase_fleet_dqn(torch)
-    phase_eval_race(torch)
+    # the registered policies of evaluate_policy(_fleet) go through the sweep
+    # cache, which lands in the working directory
+    with _sweep_golden().working_dir():
+        phase_fleet_dqn(torch)
+    with _sweep_golden().working_dir():
+        phase_eval_race(torch)
     phase_eval_table3(torch)
     phase_serving_day(torch)
+    phase_sweep_baselines(torch)
+    phase_sweep_paper(torch)
+    phase_sweep_batched(torch)
     phase_train_parity(torch)
     phase_train(torch)
     ms_row["launches"] = launches["mamba_scan"]
@@ -1661,7 +1718,9 @@ def phase_xlstm_prefill(torch, dev) -> dict:
 
         # where the time goes: one profiled prefill, 4 decode steps at batch 4,
         # and the sLSTM loops alone against an unprofiled forward
-        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), top=12,
+        # device activity alone: the sLSTM loops' ~10^5 host-side op events
+        # took the profiler about a minute to gather, and no row reads them
+        prefill_prof = _profile(torch, lambda: forward(cfg, params, batch), top=12, host_ops=False,
                                 groups={"mlstm_chunkwise": _K3_KERNELS, **{k: (k,) for k in _K3_KERNELS}})
         cache = init_cache(cfg, 4, 128)
         tok = batch["tokens"][:, :1].repeat(2, 1)
@@ -2439,9 +2498,29 @@ def _sim_compare(got: dict, want: dict) -> dict:
     return out
 
 
+def _sim_parity_cpu(tables, jobs, pol, mode):
+    """One group's ``simulate_batch`` on the CPU, in a child process that does
+    not see the card: the result and its seconds."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(2)
+    import repro_torch.core.batched as P
+
+    t0 = time.perf_counter()
+    res = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode, device="cpu")
+    return res, time.perf_counter() - t0
+
+
 def phase_sim_parity(torch) -> None:
-    """The card's ``simulate_batch`` against the port's CPU run and the reference's
-    golden aggregates, on every row of the agreement matrix."""
+    """The card's ``simulate_batch`` against the port's CPU run (a child process
+    a group, beside the card's runs) and the reference's golden aggregates, on
+    every row of the agreement matrix."""
+    import concurrent.futures
+    import multiprocessing
+
     import repro_torch.core.batched as P
 
     golden = json.loads(SIM_GOLDEN.read_text())
@@ -2453,15 +2532,22 @@ def phase_sim_parity(torch) -> None:
         groups.setdefault((row[1] == "daynight", row[2]), []).append(row)
     rows = {}
     n = len(SIM_SEEDS)
+    built = {key: _sim_group(P, members, SIM_SEEDS, SIM_LOAD) for key, members in groups.items()}
     _reset_counts()
-    for (_, mode), members in groups.items():
-        tables, jobs, pol = _sim_group(P, members, SIM_SEEDS, SIM_LOAD)
-        t0 = time.perf_counter()
-        card = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode, device="cpu")
-        cpu_s = time.perf_counter() - t0
+    # each group's CPU run in a child process of its own, beside the card's runs
+    with concurrent.futures.ProcessPoolExecutor(
+            len(groups), mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_futs = {key: pool.submit(_sim_parity_cpu, *built[key], key[1]) for key in groups}
+        runs = {}
+        for key in groups:
+            tables, jobs, pol = built[key]
+            t0 = time.perf_counter()
+            card = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=key[1])
+            runs[key] = card, time.perf_counter() - t0
+        runs = {key: (*runs[key], *cpu_futs[key].result()) for key in groups}
+    for (daynight, mode), members in groups.items():
+        tables, jobs, pol = built[(daynight, mode)]
+        card, card_s, cpu, cpu_s = runs[(daynight, mode)]
         for i, (scenario, policy, _) in enumerate(members):
             rid = f"{scenario}/{policy}/{mode}"
             part = slice(i * n, (i + 1) * n)
@@ -3056,13 +3142,26 @@ def phase_fleet_dqn(torch) -> None:
 
 
 def phase_eval_replay(torch) -> None:
-    """Every checked-in sweep row through the port's ``run_cell``, compared."""
-    from repro_torch.launch import evaluate as PE
-
+    """Every checked-in sweep row: the stored cells of the seven files in one
+    ``run_cells`` call on SWEEP_WORKERS processes (no cache), each result
+    against its row as ``python -m repro_torch.launch.evaluate --replay``
+    compares them (``compare_rows``)."""
     from repro_torch.forecast import fit_scenario_forecaster
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.runner import run_cells
 
+    rows = {path: [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+            for path in EVAL_FILES}
     _reset_counts()
-    files = [PE.replay(str(path), EVAL_RTOL) for path in EVAL_FILES]
+    t0 = time.perf_counter()
+    with _sweep_golden().working_dir():
+        out = run_cells("eval_replay", [rec["cell"] for recs in rows.values() for rec in recs],
+                        workers=SWEEP_WORKERS, cache=False, artifacts_dir=None)  # the card
+    seconds = time.perf_counter() - t0
+    files, start = [], 0
+    for path, recs in rows.items():
+        files.append(PE.compare_rows(path.name, recs, out.results[start:start + len(recs)], EVAL_RTOL))
+        start += len(recs)
     counts = _counts()
     # the forecaster's least-squares fit (LAPACK) against the reference's
     # coefficients, written by the reference: the first suspect if a forecast
@@ -3073,10 +3172,11 @@ def phase_eval_replay(torch) -> None:
         m = fit_scenario_forecaster(family)
         fit_diff[family] = max(abs(a - b) for a, b in zip([m.mean, *m.cos_coeffs, *m.sin_coeffs], want))
     emit("eval_replay", files=files, rows=sum(f["rows"] for f in files),
-         within_rtol=sum(f["within_rtol"] for f in files), seconds=sum(f["seconds"] for f in files),
+         within_rtol=sum(f["within_rtol"] for f in files), seconds=seconds, workers=SWEEP_WORKERS,
          forecast_fit_max_diff=fit_diff, model_kernel_launches=counts)
     for f in files:
         check(f["within_rtol"] == f["rows"], f"eval_replay: {f['file']}: rows off {f['off'][:8]}")
+    check(sum(f["rows"] for f in files) == 518, "eval_replay: the files hold 518 rows")
     check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
 
 
@@ -3178,6 +3278,244 @@ def phase_eval_table3(torch) -> None:
           "eval_table3: non-finite row")
     check(not any(counts.values()), f"the evaluator launched a model kernel: {counts}")
 
+
+# ------------------------------ the sweep engine ------------------------------
+
+
+def _sweep_golden():
+    """tests/torch_sweep_golden.py: the golden file's inputs and comparisons."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sweep_golden
+
+    return torch_sweep_golden
+
+
+def phase_sweep_baselines(torch) -> None:
+    """The seven checked-in baselines at scale 0.1: every grid's cells in one
+    ``run_cells`` call on SWEEP_WORKERS spawned processes, then each grid
+    through ``run_grid`` from the cache, its artifact against its file as
+    the CLI's ``--check-baseline`` compares them; then ``smoke`` again."""
+    from repro_torch.sweep.__main__ import check_baseline
+    from repro_torch.sweep.grids import GRIDS, run_grid
+    from repro_torch.sweep.runner import run_cells
+
+    G = _sweep_golden()
+    grids = {}
+    _reset_counts()
+    with G.working_dir():
+        cells = [c for grid in SWEEP_BASELINES for c in GRIDS[grid].build(SWEEP_BASELINE_SCALE)]
+        t0 = time.perf_counter()
+        warm = run_cells("sweep_baselines", cells, workers=SWEEP_WORKERS, artifacts_dir=None)  # the card
+        warm_s = time.perf_counter() - t0
+        for grid, stem in SWEEP_BASELINES.items():
+            t0 = time.perf_counter()
+            _, out = run_grid(grid, scale=SWEEP_BASELINE_SCALE, workers=SWEEP_WORKERS)
+            seconds = time.perf_counter() - t0
+            bad = check_baseline(out.jsonl_path, str(BASELINES_DIR / f"{stem}.jsonl"), EVAL_RTOL)
+            grids[grid] = {"cells": out.total, "computed": out.computed_count, "run_grid_s": seconds,
+                           "mismatches": bad}
+        t0 = time.perf_counter()
+        _, again = run_grid("smoke", scale=SWEEP_BASELINE_SCALE, workers=SWEEP_WORKERS)
+        cached = {"cells": again.total, "cached": again.cached_count, "computed": again.computed_count,
+                  "seconds": time.perf_counter() - t0}
+    counts = _counts()
+    emit("sweep_baselines", scale=SWEEP_BASELINE_SCALE, workers=SWEEP_WORKERS, rtol=EVAL_RTOL,
+         rows=len(cells), computed=warm.computed_count, compute_s=warm_s, cells_per_s=len(cells) / warm_s,
+         grids=grids, smoke_again=cached, model_kernel_launches=counts)
+    check(all(g["mismatches"] == 0 for g in grids.values()),
+          f"sweep_baselines: mismatches {({k: g['mismatches'] for k, g in grids.items()})}")
+    check(len(cells) == 518 and warm.computed_count == 518, "sweep_baselines: the files hold 518 rows")
+    check(cached["computed"] == 0 and cached["cached"] == cached["cells"],
+          f"sweep_baselines: smoke from the cache {cached}")
+    check(not any(counts.values()), f"the sweep launched a model kernel: {counts}")
+
+
+def _dqn_flips(cells) -> list:
+    """The registry DQN's greedy decisions on ``cells``, on the card, each held
+    to a CPU learner's: the decisions that differ, with their Q gaps."""
+    from repro_torch.core.rl.agent import greedy_policy
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.sweep.cells import run_cell
+
+    log = PE.DecisionLog(PE.load_learner(str(RL_PARAMS)))
+    for cell in cells:
+        run_cell(cell, policy_factory=lambda: greedy_policy(log))
+    return PE.action_flips(log, PE.load_learner(str(RL_PARAMS), "cpu"))
+
+
+def phase_sweep_paper(torch) -> None:
+    """The seven paper grids at scale 1.0 against the reference's rows in the
+    golden file: their cells in one ``run_cells`` call on SWEEP_WORKERS
+    spawned processes, then each grid through ``run_grid`` from the cache;
+    then with the checked-in DQN parameters at artifacts/dqn_params.npz,
+    Table III and Fig. 11 through ``run_grid`` in this process, their DQN
+    days computed with the Q network on the card (the others cached); one
+    DQN day under the profiler."""
+    import shutil
+
+    from repro_torch.sweep.cells import run_cell
+    from repro_torch.sweep.grids import GRIDS, run_grid
+    from repro_torch.sweep.runner import run_cells
+
+    G = _sweep_golden()
+    golden = json.loads(G.GOLDEN.read_text())
+    check(golden["run"]["scale"] == G.SCALE, "sweep_paper: the golden file holds another scale")
+    _reset_counts()
+    with G.working_dir():
+        cells = [c for g in G.PAPER_GRIDS for c in GRIDS[g].build(G.SCALE)]
+        t0 = time.perf_counter()
+        warm = run_cells("sweep_paper", cells, workers=SWEEP_WORKERS, artifacts_dir=None)  # the card
+        warm_s = time.perf_counter() - t0
+        plain = G.run_paper(run_grid, G.PAPER_GRIDS, G.SCALE, workers=SWEEP_WORKERS)
+        os.makedirs("artifacts", exist_ok=True)
+        shutil.copyfile(G.RL_PARAMS, G.DQN_PARAMS_PATH)
+        dqn = G.run_paper(run_grid, G.DQN_GRIDS, G.SCALE, workers=0)
+        dqn_cells = [c for g in G.DQN_GRIDS for c in GRIDS[g].build(G.SCALE) if c["policy"] == "dqn"]
+        day = _profile(torch, lambda: run_cell(dqn_cells[0]), top=4)
+        off = {"no_dqn": G.paper_off(plain, golden["paper"]["no_dqn"]),
+               "dqn": G.paper_off(dqn, golden["paper"]["dqn"])}
+        # a DQN row off the golden file: its decisions against the CPU's
+        flips = _dqn_flips(dqn_cells) if off["dqn"] else None
+    counts = _counts()
+
+    def brief(got):
+        return {g: {k: v[k] for k in ("cells", "computed", "seconds")} for g, v in got.items()}
+
+    emit("sweep_paper", scale=G.SCALE, workers=SWEEP_WORKERS, cells=len(cells), computed=warm.computed_count,
+         compute_s=warm_s, cells_per_s=len(cells) / warm_s, grids=brief(plain), dqn_workers=0,
+         dqn_grids=brief(dqn), dqn_seconds=sum(v["seconds"] for v in dqn.values()),
+         table3_dqn_rows=dqn["table3_repartitioning"]["rows"], off=off,
+         rows_max_rel={"no_dqn": G.rows_max_rel(plain, golden["paper"]["no_dqn"]),
+                       "dqn": G.rows_max_rel(dqn, golden["paper"]["dqn"])},
+         q_network={"dqn_days": len(dqn_cells), "profiled_day_wall_ms": day["wall_ms"],
+                    "profiled_day_launches": day["launches"], "profiled_day_device_busy_ms": day["device_busy_ms"],
+                    "profiled_day_idle_share": day["device_idle_share"], "top": day["top"]},
+         flips=None if flips is None else flips[:16], n_flips=None if flips is None else len(flips),
+         model_kernel_launches=counts)
+    check(not off["no_dqn"], f"sweep_paper: grids off the golden file {off['no_dqn']}")
+    check(not off["dqn"], f"sweep_paper: DQN grids off the golden file {off['dqn']}; flips {flips}")
+    check(warm.computed_count == len(cells) and all(v["computed"] == 0 for v in plain.values())
+          and sum(v["computed"] for v in dqn.values()) == len(dqn_cells),
+          "sweep_paper: cells computed where the cache should have served them")
+    check(day["launches"] > 0, "sweep_paper: the DQN day launched nothing on the card")
+    check(not any(counts.values()), f"the sweep launched a model kernel: {counts}")
+
+
+def _sweep_batched_cpu(cells) -> list:
+    """``run_batched_cells`` on the CPU for one group's cells, in a child
+    process that does not see the card."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.sweep.batched import run_batched_cells
+
+    t0 = time.perf_counter()
+    out = run_batched_cells(cells, device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def phase_sweep_batched(torch) -> None:
+    """The golden file's batched cells (3 policies x 64 paper-diurnal days, EDF-FS)
+    through ``run_cells``: 3 ``simulate_batch`` groups on the card, against the
+    port's CPU run of the same cells (a child process a group) and the oracle's
+    (on the remaining cores), both beside the card's run, and against the
+    reference's results; cells/s of both routes; one group's step under the
+    profiler."""
+    import concurrent.futures
+    import multiprocessing
+
+    import repro_torch.core.batched as P
+    from repro_torch.core.batched import backend as PB
+    from repro_torch.sweep.cells import cell_hash, cell_jobs, make_policy, make_scenario_cell
+    from repro_torch.sweep.runner import run_cells
+
+    G = _sweep_golden()
+    golden = json.loads(G.GOLDEN.read_text())["batched"]
+    cells = G.batched_cells(make_scenario_cell)
+    check(G.hash_digest([cell_hash(c) for c in cells]) == golden["hashes"],
+          "sweep_batched: the golden file holds other cells")
+    n = len(G.BATCHED_SEEDS)
+    groups = [cells[i:i + n] for i in range(0, len(cells), n)]
+    # the cores beside the card's host loop and the CPU children run the oracle
+    oracle_workers = max(1, SWEEP_WORKERS - len(groups) - 1)
+
+    def oracle_run():
+        t0 = time.perf_counter()
+        out = run_cells("sweep_batched_oracle", [G.oracle_cell(c) for c in cells], workers=oracle_workers,
+                        cache=False, artifacts_dir=None)
+        return out.results, time.perf_counter() - t0
+
+    _reset_counts()
+    with G.working_dir(), concurrent.futures.ProcessPoolExecutor(
+            len(groups), mp_context=multiprocessing.get_context("spawn")) as pool, \
+            concurrent.futures.ThreadPoolExecutor(1) as side:
+        cpu_futs = [pool.submit(_sweep_batched_cpu, group) for group in groups]
+        oracle_fut = side.submit(oracle_run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = run_cells("sweep_batched", cells, cache=False, artifacts_dir=None).results  # the card
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        oracle, oracle_s = oracle_fut.result()
+        cpu_runs = [f.result() for f in cpu_futs]
+    cpu = [out for group, _ in cpu_runs for out in group]
+    cpu_s = [s for _, s in cpu_runs]
+    # one group (the first policy's 64 rollouts) as run_batched_cells builds it:
+    # two chunks from t = 0, then SIM_PROFILED_STEPS steps timed alone and under
+    # the profiler, as sim_throughput does
+    head = cells[0]
+    tables = P.build_tables()
+    jobs = P.BatchedJobs.from_job_lists([cell_jobs(c) for c in cells[:n]], max_slots=tables.max_slots,
+                                        mig_enabled=head["mig_enabled"])
+    pol = P.compile_policy(make_policy(head["policy"], head["policy_kwargs"]), tables, batch=n)
+    consts = PB.device_constants(tables, "partial")
+    chunk, dt = P.DEFAULT_CHUNK_STEPS, P.DEFAULT_DT_MIN
+    state = PB.run_steps(PB.init_state(jobs, pol.initial), jobs, pol, consts, t0_min=0.0,
+                         n_steps=2 * chunk, penalty_min=tables.penalty_min)
+
+    def steps():
+        return PB.run_steps(state, jobs, pol, consts, t0_min=2 * chunk * dt, n_steps=SIM_PROFILED_STEPS,
+                            penalty_min=tables.penalty_min)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    steps_ms = (time.perf_counter() - t0) * 1e3
+    prof = _profile(torch, steps, top=6, host_ops=False)
+    busy = prof["device_busy_ms"] or 0.0
+    del state, consts, jobs
+    torch.cuda.empty_cache()
+    counts = _counts()
+
+    for out in (*card, *cpu):
+        out.pop("elapsed_s", None)
+    card_vs_cpu = {f"{c['group']}/{c['seed']}": G.batched_off(a, b)
+                   for c, a, b in zip(cells, card, cpu, strict=True) if G.batched_off(a, b)}
+    card_vs_golden = {f"{c['group']}/{c['seed']}": G.batched_off(a, b)
+                      for c, a, b in zip(cells, card, golden["results"], strict=True) if G.batched_off(a, b)}
+    vs_oracle = G.oracle_report(cells, card, oracle, golden["results"])
+    emit("sweep_batched", cells=len(cells), groups=len(G.BATCHED_POLICIES), seeds=n,
+         batched_s=batched_s, batched_cells_per_s=len(cells) / batched_s,
+         oracle_s=oracle_s, oracle_workers=oracle_workers, oracle_cells_per_s=len(cells) / oracle_s,
+         oracle_beside_the_card=True,
+         cpu_child_s=cpu_s, card_vs_cpu_off=card_vs_cpu, card_vs_golden_off=card_vs_golden,
+         vs_oracle=vs_oracle,
+         group_profile={"policy": head["policy"], "steps": SIM_PROFILED_STEPS, "wall_ms": steps_ms,
+                        "launches_per_step": prof["launches"] / SIM_PROFILED_STEPS,
+                        "device_busy_ms_per_step": busy / SIM_PROFILED_STEPS,
+                        "device_idle_share": 1 - busy / steps_ms if busy else None, "top": prof["top"]},
+         model_kernel_launches=counts)
+    check(all(r["num_jobs"] > 0 and math.isfinite(r["energy_wh"]) for r in card), "sweep_batched: bad rollouts")
+    check(not card_vs_cpu, f"sweep_batched: card against the CPU {dict(list(card_vs_cpu.items())[:8])}")
+    check(not card_vs_golden, f"sweep_batched: card against the golden file {dict(list(card_vs_golden.items())[:8])}")
+    check(vs_oracle["ok"], f"sweep_batched: against the oracle {vs_oracle}")
+    check(prof["launches"] > 0, "sweep_batched: the profiled steps launched nothing")
+    check(not any(counts.values()), f"the sweep launched a model kernel: {counts}")
 
 
 def _worst(got, want, tol) -> dict:

@@ -8,16 +8,17 @@ pre-evaluated into ``rate_by_slots[b, j, k]`` (the work-deplete rate of job
 ``j`` on a ``k``-slot slice, with ``mig_enabled`` folded in).
 
 :class:`BatchedResult` is the host-side mirror of the accumulator carry and
-converts back to :class:`repro_torch.core.metrics.SimResult`.
+converts back to :class:`repro_torch.core.metrics.SimResult` and to the sweep
+layer's result dicts (:meth:`BatchedResult.to_result_dicts`), so aggregation
+is backend-agnostic.
 
-The port's own copy of ``repro.core.batched.state``; the sweep layer's
-result dicts (``to_result_dicts``) are not copied.
+The port's own copy of ``repro.core.batched.state``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -175,3 +176,35 @@ class BatchedResult:
     def to_sim_results(self) -> List[SimResult]:
         """All rollouts as :class:`SimResult`, batch order preserved."""
         return [self.to_sim_result(b) for b in range(self.batch)]
+
+    def to_result_dicts(self) -> List[Dict[str, Any]]:
+        """Sweep-layer result dicts (the ``run_cell`` vocabulary).
+
+        ``util_histogram`` keeps the busy levels with minutes above 0;
+        ``config_trace`` is empty — like fleet cells, batched cells do not
+        record the per-rollout switch trace.
+        """
+        out: List[Dict[str, Any]] = []
+        for b, res in enumerate(self.to_sim_results()):
+            hist = {
+                str(k): float(v)
+                for k, v in enumerate(self.util_histogram[b])
+                if v > 0.0
+            }
+            out.append(
+                {
+                    "energy_wh": res.energy_wh,
+                    "avg_tardiness": res.avg_tardiness,
+                    "num_jobs": res.num_jobs,
+                    "total_tardiness": res.total_tardiness,
+                    "preemptions": res.preemptions,
+                    "repartitions": res.repartitions,
+                    "max_tardiness": res.max_tardiness,
+                    "deadline_misses": res.deadline_misses,
+                    "busy_slot_minutes": res.busy_slot_minutes,
+                    "extra": dict(res.extra),
+                    "util_histogram": hist,
+                    "config_trace": [],
+                }
+            )
+        return out

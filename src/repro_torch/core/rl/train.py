@@ -14,9 +14,10 @@ The port's counterpart of ``repro.core.rl.train``:
   reference's argument checks.
 * :func:`evaluate_policy` and :func:`evaluate_policy_fleet` — day
   simulations under a policy, each built as the reference builds its sweep
-  cell and run through :func:`repro_torch.sweep.cells.run_cell` on the
-  event-driven simulator, one after another (the reference's sweep engine,
-  cache and worker processes are not copied).
+  cell and run through the sweep engine
+  (:func:`repro_torch.sweep.runner.run_cells`): registered policies are
+  memoized on disk and fan out over ``workers`` processes; ad-hoc callables
+  run inline and uncached.
 
 All of it but the Q network and the TD update is float64 host code with the
 reference's order of operations.
@@ -215,6 +216,7 @@ def evaluate_policy(
     scheduler_name: str = "EDF-SS",
     seed: int = 10_000,
     mig_enabled: bool = True,
+    workers: int = 0,
     scenario: Optional[str] = None,
     scenario_kwargs: Optional[Dict] = None,
     *,
@@ -224,33 +226,62 @@ def evaluate_policy(
 
     ``policy_factory`` is either a zero-arg callable returning a
     RepartitionPolicy (fresh DQN greedy agents keep per-episode state), or a
-    registered policy — a name like ``"heuristic"`` or a ``(name, kwargs)``
-    tuple, e.g. ``("dqn", {"params_path": ...})``.  Day ``it`` uses seed
-    ``seed + it``; ``scenario`` swaps the :class:`WorkloadSpec` day for a
-    registered scenario.  ``device`` is where a registry DQN's Q network runs:
-    ``None`` is the CUDA card and raises without one, ``"cpu"`` on request.
+    registered sweep policy — a name like ``"heuristic"`` or a
+    ``(name, kwargs)`` tuple, e.g. ``("dqn", {"params_path": ...})``.
+
+    The runs go through the sweep engine (:mod:`repro_torch.sweep`):
+    registered policies are memoized on disk (``artifacts/sweeps/cache``
+    under the working directory) and fan out over ``workers`` processes;
+    ad-hoc callables run inline and uncached (a closure over live learner
+    state is neither picklable nor content-addressable).  ``scenario`` swaps
+    the workload for a registered scenario (bursty, heavy-tailed, ...).
+    ``device`` is where a DQN's Q network runs: ``None`` is the CUDA card and
+    raises without one, ``"cpu"`` on request.
     """
-    from repro_torch.sweep.cells import make_cell, result_to_sim_result, run_cell
+    from repro_torch.sweep import make_cell, make_scenario_cell, result_to_sim_result, run_cells
 
     dev = resolve_device(device)
     spec = spec or WorkloadSpec()
     policy_name, policy_kwargs, factory = _resolve_policy(policy_factory)
-    results = []
+    cells = []
     for it in range(num_iterations):
-        cell = make_cell(
-            experiment="evaluate_policy",
-            group=policy_name,
-            scheduler=scheduler_name,
-            seed=seed + it,
-            workload=None if scenario is not None else spec,
-            scenario=scenario,
-            scenario_kwargs=scenario_kwargs,
-            policy=policy_name,
-            policy_kwargs=policy_kwargs,
-            mig_enabled=mig_enabled,
-        )
-        results.append(result_to_sim_result(run_cell(cell, factory, device=dev)))
-    return results
+        if scenario is not None:
+            cells.append(
+                make_scenario_cell(
+                    experiment="evaluate_policy",
+                    group=policy_name,
+                    scheduler=scheduler_name,
+                    scenario=scenario,
+                    scenario_kwargs=scenario_kwargs,
+                    seed=seed + it,
+                    policy=policy_name,
+                    policy_kwargs=policy_kwargs,
+                    mig_enabled=mig_enabled,
+                )
+            )
+        else:
+            cells.append(
+                make_cell(
+                    experiment="evaluate_policy",
+                    group=policy_name,
+                    scheduler=scheduler_name,
+                    workload=spec,
+                    seed=seed + it,
+                    policy=policy_name,
+                    policy_kwargs=policy_kwargs,
+                    mig_enabled=mig_enabled,
+                )
+            )
+    outcome = run_cells(
+        "evaluate_policy",
+        cells,
+        workers=workers,
+        cache=factory is None,
+        artifacts_dir=None,
+        policy_factory=factory,
+        device=dev,
+    )
+    return [result_to_sim_result(r) for r in outcome.results]
 
 
 def _resolve_policy(policy_factory):
@@ -273,6 +304,7 @@ def evaluate_policy_fleet(
     scenario_kwargs: Optional[Dict] = None,
     seed: int = 20_000,
     mig_enabled: bool = True,
+    workers: int = 0,
     *,
     device: DeviceLike = None,
 ) -> List[SimResult]:
@@ -281,16 +313,17 @@ def evaluate_policy_fleet(
     Each iteration dispatches one scenario day across ``profiles`` and runs
     an *independent instance* of the policy on every device (policies carry
     run state); returns the fleet-aggregate :class:`SimResult` per
-    iteration.  The policy forms are :func:`evaluate_policy`'s; a registry
-    DQN builds one Q network a device, on ``device``.
+    iteration.  Registered policies go through the sweep engine (cached,
+    parallel); ad-hoc factories run inline and uncached, exactly as in
+    :func:`evaluate_policy`.  A registry DQN builds one Q network a device,
+    on ``device``.
     """
-    from repro_torch.sweep.cells import make_fleet_cell, result_to_sim_result, run_cell
+    from repro_torch.sweep import make_fleet_cell, result_to_sim_result, run_cells
 
     dev = resolve_device(device)
     policy_name, policy_kwargs, factory = _resolve_policy(policy_factory)
-    results = []
-    for it in range(num_iterations):
-        cell = make_fleet_cell(
+    cells = [
+        make_fleet_cell(
             experiment="evaluate_policy_fleet",
             group=policy_name,
             profiles=profiles,
@@ -303,5 +336,15 @@ def evaluate_policy_fleet(
             policy_kwargs=policy_kwargs,
             mig_enabled=mig_enabled,
         )
-        results.append(result_to_sim_result(run_cell(cell, factory, device=dev)))
-    return results
+        for it in range(num_iterations)
+    ]
+    outcome = run_cells(
+        "evaluate_policy_fleet",
+        cells,
+        workers=workers,
+        cache=factory is None,
+        artifacts_dir=None,
+        policy_factory=factory,
+        device=dev,
+    )
+    return [result_to_sim_result(r) for r in outcome.results]

@@ -1,9 +1,11 @@
 """Score repartitioning policies on the event-driven simulator, with the greedy DQN on the card.
 
 The port's evaluator: the counterpart of ``scripts/train_rl_baseline.py
---check`` (the RL-against-forecast race), of the reference's Table III grid,
-and of ``python -m repro.sweep --check-baseline`` for the checked-in sweep
-rows.  It adds nothing the reference lacks::
+--check`` (the RL-against-forecast race) and of the reference's Table III
+grid, with a replay of checked-in sweep rows.  The sweep engine's own gate,
+``python -m repro_torch.sweep <grid> --check-baseline <file>``, rebuilds a
+grid's cells and diffs its artifact; ``--replay`` instead reruns the cells
+stored in the files as they are, without rebuilding them::
 
     python -m repro_torch.launch.evaluate --race --params P.npz [--scale 0.1]
     python -m repro_torch.launch.evaluate --table3 [--params P.npz] [--scale 1.0]
@@ -21,7 +23,7 @@ rows.  It adds nothing the reference lacks::
   After ``python -m repro_torch.launch.train_rl --backend host --out P.npz``
   it is the paper's headline experiment
   (``examples/dynamic_repartitioning_day.py``);
-* ``--replay`` runs every cell of checked-in sweep baselines and compares
+* ``--replay`` runs every stored cell of checked-in sweep baselines and compares
   each result with the reference's rule (``rtol`` relative to the larger
   magnitude, at least 1; ``elapsed_s`` skipped), integers (``dispatch_counts``
   and the devices' tenant counts among them), ``config_trace`` and
@@ -46,14 +48,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.metrics import SimResult, et_table, summarize_results
+from repro_torch.core.metrics import SimResult, et_table
 from repro_torch.core.rl.agent import greedy_policy
 from repro_torch.core.rl.dqn import DQNLearner
 from repro_torch.core.rl.train import evaluate_policy
 from repro_torch.core.workload import WorkloadSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.train_rl import DECISION_INTERVAL_MIN, dqn_config
-from repro_torch.sweep.cells import make_cell, result_to_sim_result, run_cell
+from repro_torch.sweep.__main__ import _values_close as values_close
+from repro_torch.sweep.cells import make_cell, run_cell
+from repro_torch.sweep.grids import SCENARIO_ORDER, _table3_aggregate, _table3_models
+from repro_torch.sweep.grids import _iters as iters
 
 __all__ = [
     "SCENARIO_ORDER",
@@ -68,25 +73,12 @@ __all__ = [
     "table3",
     "values_close",
     "replay",
+    "compare_rows",
     "main",
 ]
 
-#: the six scenario families in the reference grids' row order
-SCENARIO_ORDER = (
-    "paper-diurnal",
-    "trace-scaled",
-    "bursty-mmpp",
-    "heavy-tail-lognormal",
-    "heavy-tail-pareto",
-    "weekend-flat",
-)
 #: first seed of the race's evaluation days
 EVAL_SEED = 90_000
-
-
-def iters(base: int, scale: float, floor: int = 1) -> int:
-    """Days per group at ``scale``, as the reference grids size them."""
-    return max(int(base * scale), floor)
 
 
 def load_learner(params_path: str, device: DeviceLike = None) -> DQNLearner:
@@ -194,20 +186,15 @@ def race(
 def table3_cells(scale: float = 1.0, params_path: Optional[str] = None) -> List[Dict[str, Any]]:
     """Table III's cells in the reference's order: model by model, seed by seed.
 
-    The models are NoMIG, static config 3, DayNight, the queue heuristic and,
-    with ``params_path``, the registry's ``"dqn"`` on those weights (event
-    cadence, as the reference's Table III runs it).
+    The models are the grid's (:mod:`repro_torch.sweep.grids`): NoMIG,
+    static config 3, DayNight, the queue heuristic and, with ``params_path``,
+    the registry's ``"dqn"`` on those weights (event cadence, as the
+    reference's Table III runs it).
     """
-    models: List[Tuple[str, Dict[str, Any]]] = [
-        ("NoMIG", {"policy": "nomig", "mig_enabled": False}),
-        ("StaticMIG", {"policy": "static", "policy_kwargs": {"config_id": 3}}),
-        ("DayNightMIG", {"policy": "daynight"}),
-        ("DynamicMIG-heuristic", {"policy": "heuristic"}),
-    ]
+    models = _table3_models(include_dqn=params_path is not None)
     if params_path is not None:
-        models.append(
-            ("DynamicMIG-DQN", {"policy": "dqn", "policy_kwargs": {"params_path": params_path}})
-        )
+        name, overrides = models[-1]
+        models[-1] = (name, {**overrides, "policy_kwargs": {"params_path": params_path}})
     spec = WorkloadSpec()
     seeds = [40_000 + k for k in range(iters(10, scale, floor=2))]
     return [
@@ -223,40 +210,12 @@ def table3_cells(scale: float = 1.0, params_path: Optional[str] = None) -> List[
 def table3(
     scale: float = 1.0, params_path: Optional[str] = None, device: DeviceLike = None
 ) -> List[Dict[str, Any]]:
-    """Table III's rows: per model, ET (shared ``a``), the improvement over
-    NoMIG in percent, and the means of the headline metrics."""
+    """Table III's rows (the grid's aggregate): per model, ET (shared ``a``),
+    the improvement over NoMIG in percent, and the means of the headline
+    metrics."""
     dev = resolve_device(device)
     cells = table3_cells(scale, params_path)
-    per: Dict[str, List[SimResult]] = {}
-    for cell in cells:
-        per.setdefault(cell["group"], []).append(
-            result_to_sim_result(run_cell(cell, device=dev))
-        )
-    table, _a = et_table(per)
-    return [
-        {
-            "model": name,
-            "ET": table[name],
-            "improvement_vs_NoMIG_pct": 100 * (1 - table[name] / table["NoMIG"]),
-            **summarize_results(per[name]),
-        }
-        for name in per
-    ]
-
-
-def values_close(a: Any, b: Any, rtol: float) -> bool:
-    """The reference's baseline rule: floats within ``rtol`` of the larger
-    magnitude (at least 1), dicts and lists element by element, the rest ``==``."""
-    if isinstance(a, float) or isinstance(b, float):
-        fa, fb = float(a), float(b)
-        return abs(fa - fb) <= rtol * max(abs(fa), abs(fb), 1.0)
-    if isinstance(a, dict) and isinstance(b, dict):
-        return a.keys() == b.keys() and all(values_close(a[k], b[k], rtol) for k in a)
-    if isinstance(a, list) and isinstance(b, list):
-        return len(a) == len(b) and all(
-            values_close(x, y, rtol) for x, y in zip(a, b, strict=True)
-        )
-    return a == b
+    return _table3_aggregate(cells, [run_cell(cell, device=dev) for cell in cells])
 
 
 def _max_rel(a: Any, b: Any) -> float:
@@ -283,30 +242,37 @@ def _exact_part(result: Dict[str, Any]) -> Dict[str, Any]:
 def replay(path: str, rtol: float = 1e-9, device: DeviceLike = None) -> Dict[str, Any]:
     """Run every cell of a checked-in sweep baseline and compare its result.
 
-    Returns the file's row count, how many rows hold (``rtol`` on the
-    floats, the integers, ``config_trace`` and ``util_histogram`` exact),
-    the largest relative float difference, the wall seconds and the cells of
-    the rows that do not hold.
+    Returns :func:`compare_rows`'s report of the file with the wall seconds.
     """
     dev = resolve_device(device)
     with open(path) as f:
         rows = [json.loads(line) for line in f if line.strip()]
     t0 = time.perf_counter()
+    results = [run_cell(rec["cell"], device=dev) for rec in rows]
+    return {**compare_rows(os.path.basename(path), rows, results, rtol),
+            "seconds": time.perf_counter() - t0}
+
+
+def compare_rows(name: str, rows: Sequence[Dict[str, Any]], results: Sequence[Dict[str, Any]],
+                 rtol: float = 1e-9) -> Dict[str, Any]:
+    """Each stored row's result against the result its cell gave now.
+
+    Returns the row count, how many rows hold (``rtol`` on the floats, the
+    integers, ``config_trace`` and ``util_histogram`` exact; ``elapsed_s``
+    skipped), the largest relative float difference and the cells of the
+    rows that do not hold.
+    """
     within, max_rel, off = 0, 0.0, []
-    for rec in rows:
-        got = run_cell(rec["cell"], device=dev)
-        got.pop("elapsed_s", None)
+    for rec, got in zip(rows, results, strict=True):
+        got = {k: v for k, v in got.items() if k != "elapsed_s"}
         want = rec["result"]
         ok = values_close(got, want, rtol) and _exact_part(got) == _exact_part(want)
         within += ok
         max_rel = max(max_rel, _max_rel(got, want))
         if not ok:
             off.append({"group": rec["cell"]["group"], "seed": rec["cell"]["seed"]})
-    return {
-        "file": os.path.basename(path), "rows": len(rows), "within_rtol": within,
-        "rtol": rtol, "max_rel_diff": max_rel, "seconds": time.perf_counter() - t0,
-        "off": off,
-    }
+    return {"file": name, "rows": len(rows), "within_rtol": within, "rtol": rtol,
+            "max_rel_diff": max_rel, "off": off}
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -1,9 +1,9 @@
-"""Sweep cells and the policy registry: one event-driven simulator run per cell.
+"""Sweep cells: the unit of work of the sweep engine, and the policy registry.
 
 A *cell* is one simulator run, described entirely by JSON-serializable data:
 
 ``{experiment, group, scheduler, policy, policy_kwargs, workload | scenario,
-seed, mig_enabled, repartition_mode[, fleet]}``
+seed, mig_enabled, repartition_mode[, fleet][, backend, backend_kwargs]}``
 
 * ``experiment`` names the grid and ``group`` the aggregation bucket inside it;
 * ``policy`` + ``policy_kwargs`` name a registered repartitioning policy
@@ -12,21 +12,29 @@ seed, mig_enabled, repartition_mode[, fleet]}``
   ``scenario`` a registered scenario with its resolved kwargs;
 * ``seed`` drives the job stream, making the cell deterministic;
 * ``fleet`` (fleet cells only) lists the devices by profile name, the
-  dispatcher and what it observes (``info``).
+  dispatcher and what it observes (``info``);
+* ``backend`` + ``backend_kwargs`` (batched cells only) route the cell
+  through the batched simulator (:mod:`repro_torch.sweep.batched`).
 
-The port's own slim copy of ``repro.sweep.cells``: the registry,
-:func:`make_cell`, :func:`make_scenario_cell` and :func:`make_fleet_cell`,
-and :func:`run_cell` on the oracle (the event-driven :class:`MIGSimulator`,
-or :class:`repro_torch.fleet.FleetSimulator` for a cell with a ``fleet``
-key), returning the reference's result dict.  The sweep engine around it
-(content hashes, the on-disk cache, worker pools, the grids) is not copied:
-the port runs cells inline.  ``backend == "batched"`` cells are refused (the
-batched sweep route is not ported).
+:func:`cell_hash` is a content hash over the cell's physics plus the
+simulator version tag (:data:`repro_torch.core.simulator.SIM_VERSION`); the
+on-disk cache keys on it, so a semantics bump invalidates every memoized
+result at once.  Cells and hashes are the reference's, key for key.
+
+The port's own copy of ``repro.sweep.cells``.  :func:`run_cell` runs one
+cell on the oracle (the event-driven :class:`MIGSimulator`, or
+:class:`repro_torch.fleet.FleetSimulator` for a cell with a ``fleet`` key)
+or, for ``backend == "batched"``, as a one-cell batch of
+:func:`repro_torch.core.batched.simulate_batch`.  The registry's ``"dqn"``
+runs its Q network on ``device`` (default: the CUDA card), as the batched
+simulator does; everything else is float64 host code.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
 from typing import TYPE_CHECKING, Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -35,6 +43,7 @@ from repro_torch.core.scenarios import generate_scenario, resolve_scenario_kwarg
 from repro_torch.core.schedulers import make_scheduler
 from repro_torch.core.simulator import (
     REPARTITION_MODES,
+    SIM_VERSION,
     DayNightPolicy,
     MIGSimulator,
     NoMIGPolicy,
@@ -49,14 +58,20 @@ if TYPE_CHECKING:  # pragma: no cover
 
 __all__ = [
     "POLICIES",
+    "CellSpec",
+    "canonical_json",
+    "cell_hash",
     "cell_jobs",
     "cell_repartition_mode",
+    "file_digest",
+    "group_results",
     "make_cell",
     "make_fleet_cell",
     "make_policy",
     "make_scenario_cell",
     "result_to_sim_result",
     "run_cell",
+    "workload_to_dict",
 ]
 
 Cell = Dict[str, Any]
@@ -175,7 +190,173 @@ def make_policy(
 
 
 # ----------------------------------------------------------------------
-# cell construction
+# cell construction + hashing
+
+def file_digest(path: str) -> str:
+    """Content digest of an auxiliary input file ('' when absent)."""
+    try:
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    except OSError:
+        return ""
+
+
+def workload_to_dict(spec: WorkloadSpec) -> Dict[str, Any]:
+    """All WorkloadSpec fields, fully resolved (defaults included).
+
+    Resolving defaults into the cell means the hash captures the *values* the
+    simulation saw — a changed default can never alias a stale cache entry.
+    """
+    return dataclasses.asdict(spec)
+
+
+def _base_cell(
+    *,
+    experiment: str,
+    group: str,
+    scheduler: str,
+    seed: int,
+    policy: str,
+    policy_kwargs: Optional[Mapping[str, Any]],
+    mig_enabled: bool,
+    repartition_mode: str,
+    backend: str = "oracle",
+    backend_kwargs: Optional[Mapping[str, Any]] = None,
+) -> Cell:
+    """The fields every cell shares; workload/scenario keys are added on top.
+
+    ``backend`` selects the simulation engine: ``"oracle"`` (the event-driven
+    :class:`MIGSimulator`, the default) adds *no* keys, while ``"batched"``
+    stamps the cell with ``backend`` plus its resolved ``backend_kwargs``
+    (``dt_min``), so oracle and batched runs of the same physics never alias
+    one cache entry.
+    """
+    if repartition_mode not in REPARTITION_MODES:
+        raise ValueError(
+            f"unknown repartition_mode {repartition_mode!r}; "
+            f"valid: {REPARTITION_MODES}"
+        )
+    if backend not in ("oracle", "batched"):
+        raise ValueError(
+            f"unknown backend {backend!r}; valid: ('oracle', 'batched')"
+        )
+    if backend == "oracle" and backend_kwargs:
+        raise ValueError("backend_kwargs only apply to the batched backend")
+    policy_kwargs = dict(policy_kwargs or {})
+    # Policies that load weights from disk are only content-addressable if the
+    # weights themselves enter the hash: a retrained checkpoint at the same
+    # path must miss the cache, not silently serve stale results.
+    if "params_path" in policy_kwargs:
+        policy_kwargs["_params_digest"] = file_digest(policy_kwargs["params_path"])
+    cell: Cell = {
+        "experiment": experiment,
+        "group": group,
+        "scheduler": scheduler,
+        "policy": policy,
+        "policy_kwargs": policy_kwargs,
+        "seed": int(seed),
+        "mig_enabled": bool(mig_enabled),
+        # resolved explicitly into the cell (the hash must capture the mode
+        # the simulator ran under); cells *without* the key are pre-mig-sim-4
+        # and replay under the legacy drain model (see run_cell)
+        "repartition_mode": repartition_mode,
+    }
+    if backend == "batched":
+        # resolved like workload defaults: the hash must capture the timestep
+        # the discretization ran at
+        from repro_torch.core.batched import DEFAULT_DT_MIN
+
+        kw = dict(backend_kwargs or {})
+        kw["dt_min"] = float(kw.get("dt_min", DEFAULT_DT_MIN))
+        cell["backend"] = "batched"
+        cell["backend_kwargs"] = kw
+    return cell
+
+
+@dataclasses.dataclass(frozen=True)
+class CellSpec:
+    """One declarative description of any sweep cell — the single build path.
+
+    ``CellSpec`` holds the union of the constructors' parameters once,
+    validates the combinations, and :meth:`to_cell` emits the dict with the
+    reference's key-presence rules, so every cell hashes as the reference's
+    does.  :func:`make_cell`, :func:`make_scenario_cell` and
+    :func:`make_fleet_cell` are thin wrappers.
+
+    Job stream: exactly one of ``workload`` (a raw :class:`WorkloadSpec`)
+    or ``scenario`` (a registered scenario name; ``scenario_kwargs`` are
+    resolved against its defaults into the cell).  Fleet cells
+    (``fleet_profiles`` set) require a scenario stream and a dispatcher;
+    ``dispatch_info`` enters the cell under the ``fleet.info`` key.
+    """
+
+    experiment: str
+    group: str
+    scheduler: str
+    seed: int
+    # --- job stream (exactly one) -------------------------------------
+    workload: Optional[WorkloadSpec] = None
+    scenario: Optional[str] = None
+    scenario_kwargs: Optional[Mapping[str, Any]] = None
+    # --- policy + physics ---------------------------------------------
+    policy: str = "static"
+    policy_kwargs: Optional[Mapping[str, Any]] = None
+    mig_enabled: bool = True
+    repartition_mode: str = "partial"
+    # --- execution backend --------------------------------------------
+    backend: str = "oracle"
+    backend_kwargs: Optional[Mapping[str, Any]] = None
+    # --- fleet ----------------------------------------------------------
+    fleet_profiles: Optional[Sequence[str]] = None
+    dispatcher: Optional[str] = None
+    dispatch_info: str = "online"
+
+    def to_cell(self) -> Cell:
+        """Build the JSON cell dict (validates field combinations)."""
+        if (self.workload is None) == (self.scenario is None):
+            raise ValueError(
+                "CellSpec needs exactly one job stream: workload or scenario"
+            )
+        if self.scenario_kwargs is not None and self.scenario is None:
+            raise ValueError("scenario_kwargs require a scenario stream")
+        is_fleet = self.fleet_profiles is not None
+        if is_fleet and not self.fleet_profiles:
+            raise ValueError("fleet_profiles must name at least one device")
+        if is_fleet and self.scenario is None:
+            raise ValueError("fleet cells take a scenario stream, not a raw workload")
+        if is_fleet and self.dispatcher is None:
+            raise ValueError("fleet cells require a dispatcher")
+        if not is_fleet and self.dispatcher is not None:
+            raise ValueError("dispatcher only applies to fleet cells")
+        if is_fleet and self.backend != "oracle":
+            raise ValueError("fleet cells only run on the oracle backend")
+        cell = _base_cell(
+            experiment=self.experiment,
+            group=self.group,
+            scheduler=self.scheduler,
+            seed=self.seed,
+            policy=self.policy,
+            policy_kwargs=self.policy_kwargs,
+            mig_enabled=self.mig_enabled,
+            repartition_mode=self.repartition_mode,
+            backend=self.backend,
+            backend_kwargs=self.backend_kwargs,
+        )
+        if self.workload is not None:
+            cell["workload"] = workload_to_dict(self.workload)
+        else:
+            cell["scenario"] = {
+                "name": self.scenario,
+                "kwargs": resolve_scenario_kwargs(self.scenario, self.scenario_kwargs),
+            }
+        if is_fleet:
+            cell["fleet"] = {
+                "devices": [{"profile": p} for p in self.fleet_profiles],
+                "dispatcher": self.dispatcher,
+                "info": self.dispatch_info,
+            }
+        return cell
+
 
 def make_cell(
     *,
@@ -190,41 +371,31 @@ def make_cell(
     policy_kwargs: Optional[Mapping[str, Any]] = None,
     mig_enabled: bool = True,
     repartition_mode: str = "partial",
+    backend: str = "oracle",
+    backend_kwargs: Optional[Mapping[str, Any]] = None,
 ) -> Cell:
-    """A single-GPU oracle cell, as the reference's ``CellSpec.to_cell`` builds it.
+    """A single-GPU cell, thin over :class:`CellSpec` (the one build path).
 
-    Exactly one job stream: a raw :class:`WorkloadSpec` (resolved to its
-    field dict) or a registered scenario (its kwargs resolved against the
-    scenario's defaults).  The reference's cache-only ``_params_digest`` is
-    not added.
+    Its job stream is a raw :class:`WorkloadSpec`, as the reference's
+    ``make_cell`` takes, or a registered scenario, as
+    :func:`make_scenario_cell` takes; the cell is the one the reference
+    builds for either.
     """
-    if (workload is None) == (scenario is None):
-        raise ValueError("a cell needs exactly one job stream: workload or scenario")
-    if scenario_kwargs is not None and scenario is None:
-        raise ValueError("scenario_kwargs require a scenario stream")
-    if repartition_mode not in REPARTITION_MODES:
-        raise ValueError(
-            f"unknown repartition_mode {repartition_mode!r}; "
-            f"valid: {REPARTITION_MODES}"
-        )
-    cell: Cell = {
-        "experiment": experiment,
-        "group": group,
-        "scheduler": scheduler,
-        "policy": policy,
-        "policy_kwargs": dict(policy_kwargs or {}),
-        "seed": int(seed),
-        "mig_enabled": bool(mig_enabled),
-        "repartition_mode": repartition_mode,
-    }
-    if workload is not None:
-        cell["workload"] = dataclasses.asdict(workload)
-    else:
-        cell["scenario"] = {
-            "name": scenario,
-            "kwargs": resolve_scenario_kwargs(scenario, scenario_kwargs),
-        }
-    return cell
+    return CellSpec(
+        experiment=experiment,
+        group=group,
+        scheduler=scheduler,
+        seed=seed,
+        workload=workload,
+        scenario=scenario,
+        scenario_kwargs=scenario_kwargs,
+        policy=policy,
+        policy_kwargs=policy_kwargs,
+        mig_enabled=mig_enabled,
+        repartition_mode=repartition_mode,
+        backend=backend,
+        backend_kwargs=backend_kwargs,
+    ).to_cell()
 
 
 def make_scenario_cell(
@@ -239,12 +410,17 @@ def make_scenario_cell(
     policy_kwargs: Optional[Mapping[str, Any]] = None,
     mig_enabled: bool = True,
     repartition_mode: str = "partial",
+    backend: str = "oracle",
+    backend_kwargs: Optional[Mapping[str, Any]] = None,
 ) -> Cell:
-    """A cell whose jobs come from a registered scenario, not a raw spec
-    (``multi-tenant-serving``'s cells among them); the scenario's knobs are
-    resolved against its defaults into the cell. The reference's ``backend``
-    arguments are not taken: the port runs cells on the oracle only."""
-    return make_cell(
+    """A cell whose jobs come from a registered scenario, not a raw spec.
+
+    Thin wrapper over :class:`CellSpec`; the scenario's knobs are resolved
+    against its defaults into the cell — the content hash must capture the
+    values the generator saw, exactly as :func:`workload_to_dict` resolves
+    :class:`WorkloadSpec` defaults.
+    """
+    return CellSpec(
         experiment=experiment,
         group=group,
         scheduler=scheduler,
@@ -255,7 +431,9 @@ def make_scenario_cell(
         policy_kwargs=policy_kwargs,
         mig_enabled=mig_enabled,
         repartition_mode=repartition_mode,
-    )
+        backend=backend,
+        backend_kwargs=backend_kwargs,
+    ).to_cell()
 
 
 def make_fleet_cell(
@@ -276,22 +454,15 @@ def make_fleet_cell(
 ) -> Cell:
     """A fleet cell: N devices (by profile name) behind a dispatcher.
 
-    The extra ``fleet`` key routes :func:`run_cell` through
-    :class:`repro_torch.fleet.FleetSimulator`.  Every device runs
-    ``scheduler`` and an independent instance of the cell's repartitioning
-    policy.  ``dispatch_info`` selects what the dispatcher observes —
-    ``"online"`` (real co-advanced engine state, the default) or ``"fluid"``
-    (the legacy backlog-estimate pre-split); the value always enters the
-    cell, as the reference's ``CellSpec`` writes it.
+    Thin wrapper over :class:`CellSpec`; the extra ``fleet`` key routes
+    :func:`run_cell` through :class:`repro_torch.fleet.FleetSimulator`.
+    Every device runs ``scheduler`` and an independent instance of the cell's
+    repartitioning policy.  ``dispatch_info`` selects what the dispatcher
+    observes — ``"online"`` (real co-advanced engine state, the default) or
+    ``"fluid"`` (the legacy backlog-estimate pre-split); the resolved value
+    always enters the cell so the content hash captures it.
     """
-    profiles = tuple(profiles)
-    if not profiles:
-        raise ValueError("fleet_profiles must name at least one device")
-    if scenario is None:
-        raise ValueError("fleet cells take a scenario stream, not a raw workload")
-    if dispatcher is None:
-        raise ValueError("fleet cells require a dispatcher")
-    cell = make_cell(
+    return CellSpec(
         experiment=experiment,
         group=group,
         scheduler=scheduler,
@@ -302,13 +473,27 @@ def make_fleet_cell(
         policy_kwargs=policy_kwargs,
         mig_enabled=mig_enabled,
         repartition_mode=repartition_mode,
-    )
-    cell["fleet"] = {
-        "devices": [{"profile": p} for p in profiles],
-        "dispatcher": dispatcher,
-        "info": dispatch_info,
-    }
-    return cell
+        fleet_profiles=tuple(profiles),
+        dispatcher=dispatcher,
+        dispatch_info=dispatch_info,
+    ).to_cell()
+
+
+def canonical_json(obj: Any) -> str:
+    """Byte-stable JSON: sorted keys, no whitespace, repr round-trip floats."""
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+#: cell keys that label the grid rather than the simulation — excluded from
+#: the hash so identical physics shares one cache entry across experiments.
+_META_KEYS = frozenset({"experiment", "group"})
+
+
+def cell_hash(cell: Cell, sim_version: str = SIM_VERSION) -> str:
+    """Content hash of the cell's physics + simulator version (cache key)."""
+    physics = {k: v for k, v in cell.items() if k not in _META_KEYS}
+    payload = canonical_json({"cell": physics, "sim_version": sim_version})
+    return hashlib.sha256(payload.encode("utf-8")).hexdigest()
 
 
 # ----------------------------------------------------------------------
@@ -428,23 +613,30 @@ def run_cell(
     *,
     device: DeviceLike = None,
 ) -> Dict[str, Any]:
-    """Execute one cell on the oracle; returns the reference's result dict.
+    """Execute one cell; returns the reference's result dict.
 
-    ``policy_factory`` overrides the registry lookup (e.g. a greedy agent on
-    a learner already in memory).  A cell with a ``fleet`` key runs through
-    :class:`repro_torch.fleet.FleetSimulator` (one policy instance a device)
-    and reports the fleet aggregate in the standard fields, plus
-    ``dispatch_counts`` and ``devices``.  ``device`` is where a registry DQN's Q
-    network runs: ``None`` is the CUDA card and raises without one; the CPU
-    runs only on ``device="cpu"``.
+    ``policy_factory`` overrides the registry lookup for in-process runs with
+    ad-hoc policies (e.g. a greedy agent on a learner already in memory);
+    such cells bypass the cache at the runner layer.  A cell with a ``fleet``
+    key runs through :class:`repro_torch.fleet.FleetSimulator` (one policy
+    instance a device) and reports the fleet aggregate in the standard
+    fields, plus ``dispatch_counts`` and ``devices``.  A cell with ``backend
+    == "batched"`` runs through :mod:`repro_torch.sweep.batched` (a one-cell
+    batch here; :func:`repro_torch.sweep.runner.run_cells` groups them).
+    ``device`` is where a registry DQN's Q network and the batched simulator
+    run: ``None`` is the CUDA card and raises without one; the CPU runs only
+    on ``device="cpu"``.
     """
     dev = resolve_device(device)
     if cell.get("backend") == "batched":
-        raise NotImplementedError(
-            "batched-backend cells run through the batched sweep route, which "
-            "the port does not have yet; run the cell without 'backend' (the "
-            "oracle) or use repro_torch.core.batched.simulate_batch directly"
-        )
+        if policy_factory is not None:
+            raise ValueError(
+                "ad-hoc policy_factory cells cannot run on the batched "
+                "backend (policies must compile; see repro_torch.core.batched)"
+            )
+        from repro_torch.sweep.batched import run_batched_cells
+
+        return run_batched_cells([cell], device=dev)[0]
     if "fleet" in cell:
         return _run_fleet_cell(cell, policy_factory, dev)
     jobs = cell_jobs(cell)
@@ -486,3 +678,18 @@ def result_to_sim_result(result: Mapping[str, Any]) -> SimResult:
         extra=dict(result["extra"]),
         tenants=tenants,
     )
+
+
+def group_results(
+    cells: Sequence[Cell], results: Sequence[Mapping[str, Any]]
+) -> Dict[str, List[SimResult]]:
+    """Bucket per-cell results by ``cell['group']``, preserving cell order.
+
+    Order preservation matters: float summation is order-sensitive, and the
+    reference's aggregates accumulate results in grid order — grouping in the
+    same order keeps aggregate numbers bit-identical to the reference's.
+    """
+    out: Dict[str, List[SimResult]] = {}
+    for cell, result in zip(cells, results, strict=True):
+        out.setdefault(cell["group"], []).append(result_to_sim_result(result))
+    return out

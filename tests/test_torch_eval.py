@@ -255,8 +255,8 @@ def test_make_cell_matches_reference_cells(kw):
     else:
         got = PC.make_cell(experiment="e", group="g", scheduler="EDF-SS", seed=7, **kw)
         want = RC.make_scenario_cell(experiment="e", group="g", scheduler="EDF-SS", seed=7, **kw)
-    want["policy_kwargs"].pop("_params_digest", None)
-    assert got == want
+    assert got == want  # a DQN cell's weights digest included, as the sweep cache keys on it
+    assert PC.cell_hash(got) == RC.cell_hash(want)
 
 
 def test_registry_mode_coupling_and_legacy_cells():
@@ -281,12 +281,17 @@ def test_run_cell_refuses_fleet_and_batched_cells():
     fleet = {"devices": [{"profile": "h100-apocryphal"}], "dispatcher": "round-robin"}
     with pytest.raises(KeyError, match="unknown device profile"):
         PC.run_cell({**cell, "fleet": fleet}, device="cpu")
-    with pytest.raises(NotImplementedError, match="batched"):
+    # batched cells run through the batched sweep route (tests/test_torch_sweep_batched.py),
+    # which refuses an EDF-SS cell with the reference's error rather than run it elsewhere
+    from repro_torch.core.batched import UnsupportedPolicyError
+
+    with pytest.raises(UnsupportedPolicyError, match="batched backend implements only EDF-FS"):
         PC.run_cell({**cell, "backend": "batched"}, device="cpu")
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     """No card here: the default device raises; the CPU runs only on request."""
+    monkeypatch.chdir(tmp_path)  # evaluate_policy's sweep cache lands here
     from repro_torch.core.rl.train import evaluate_policy
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -355,6 +360,8 @@ def test_race_matches_the_reference_evaluate(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)  # the reference's sweep cache lands here
     monkeypatch.setattr(RG, "SCENARIO_ORDER", families)
     want = train_rl_baseline.evaluate(PARAMS, scale=0.1)
+    (tmp_path / "port").mkdir()
+    monkeypatch.chdir(tmp_path / "port")  # the port's sweep cache apart from the reference's
     learner = PE.load_learner(PARAMS, "cpu")
     log = PE.DecisionLog(learner)
     got, per = PE.race(log, 0.1, families=families, device="cpu")
@@ -375,9 +382,7 @@ def test_table3_matches_reference_grid(monkeypatch):
     assert [r["model"] for r in got] == ["NoMIG", "StaticMIG", "DayNightMIG",
                                          "DynamicMIG-heuristic", "DynamicMIG-DQN"]
     ours = PE.table3_cells(0.1, PARAMS)
-    for c in cells:
-        c["policy_kwargs"].pop("_params_digest", None)
-    assert ours == cells
+    assert ours == cells  # the DQN row's weights digest included
 
 
 def test_cli_table3_and_race_args(capsys):

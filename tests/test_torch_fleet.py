@@ -532,8 +532,11 @@ def test_evaluate_policy_fleet_registry_dqn_matches_reference(tmp_path, monkeypa
 
     kw = dict(profiles=["a100-250w", "a30-165w"], dispatcher="fragmentation-aware", num_iterations=1,
               scenario="bursty-mmpp", scenario_kwargs={"horizon_min": 360.0}, seed=5)
+    (tmp_path / "port").mkdir()
+    (tmp_path / "ref").mkdir()
+    monkeypatch.chdir(tmp_path / "port")  # the port's sweep cache lands here
     got = evaluate_policy_fleet(("dqn", {"params_path": PARAMS}), device="cpu", **kw)
-    monkeypatch.chdir(tmp_path)  # the reference's sweep cache lands here
+    monkeypatch.chdir(tmp_path / "ref")  # the reference's apart from it
     want = ref_eval(("dqn", {"params_path": PARAMS}), **kw)
     assert [_res(r) for r in got] == [_res(r) for r in want]
     assert got[0].repartitions > 0
@@ -563,8 +566,12 @@ def test_fleet_cell_and_its_run_match_reference(overrides):
 def test_fleet_cell_checks_and_refusals():
     with pytest.raises(ValueError, match="at least one device"):
         PC.make_fleet_cell(**{**CELL_KW, "profiles": []})
-    with pytest.raises(ValueError, match="scenario stream"):
+    # no job stream at all: CellSpec's first refusal, as the reference's make_fleet_cell gives it
+    with pytest.raises(ValueError, match="exactly one job stream") as got:
         PC.make_fleet_cell(**{**CELL_KW, "scenario": None, "scenario_kwargs": None})
+    with pytest.raises(ValueError) as want:
+        RC.make_fleet_cell(**{**CELL_KW, "scenario": None, "scenario_kwargs": None})
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="require a dispatcher"):
         PC.make_fleet_cell(**{**CELL_KW, "dispatcher": None})
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -649,7 +656,7 @@ def test_golden_file_is_the_reference_run():
     assert json.loads(GOLDEN.read_text()) == json.loads(json.dumps(_reference_golden()))
 
 
-def test_port_fleet_dqn_day_matches_golden_file():
+def test_port_fleet_dqn_day_matches_golden_file(tmp_path, monkeypatch):
     from repro_torch.core.rl.train import evaluate_policy_fleet
     from repro_torch.sweep.cells import result_to_sim_result
 
@@ -661,6 +668,7 @@ def test_port_fleet_dqn_day_matches_golden_file():
         got.pop("elapsed_s")
         assert values_close(got, want, RTOL) and _exact_part(got) == _exact_part(want)
         assert got["dispatch_counts"] == want["dispatch_counts"]
+    monkeypatch.chdir(tmp_path)  # evaluate_policy_fleet's sweep cache lands here
     results = evaluate_policy_fleet(("dqn", {"params_path": str(ROOT / g["params"])}), profiles=g["profiles"],
                                     dispatcher=g["dispatcher"], num_iterations=g["num_iterations"],
                                     scheduler_name=g["scheduler"], scenario=g["scenario"], seed=g["seed"],

@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine),
 nor ``ml_dtypes``, which comes with JAX and is absent on the card's machine.
 
-Nor does ``tests/torch_rl_golden.py``, which ``chip_smoke.py`` imports on a
-machine without JAX."""
+Nor do ``tests/torch_rl_golden.py`` and ``tests/torch_sweep_golden.py``, which
+``chip_smoke.py`` imports on a machine without JAX."""
 
 import ast
 from pathlib import Path
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py", ROOT / "tests" / "torch_sweep_golden.py"]
 BANNED = ("jax", "repro", "ml_dtypes")
 
 
@@ -52,7 +52,8 @@ def test_port_files_exist():
              "launch/train_rl", "core/engine", "core/schedulers", "core/rl/agent",
              "core/rl/train", "forecast/forecaster", "forecast/policy", "sweep/cells",
              "launch/cluster_sim", "launch/evaluate", "tree", "data/pipeline",
-             "checkpoint/store", "distributed/step", "launch/train")} <= listed
+             "checkpoint/store", "distributed/step", "launch/train", "sweep/cache",
+             "sweep/batched", "sweep/runner", "sweep/grids", "sweep/__main__")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
