@@ -305,6 +305,38 @@ reference does (the four kernels are forward-only and stay off it):
               and files, the seconds of the host snapshot, the write and the
               restore, K1-K4's launches (0), and torch.profiler over one step.
 
+Then the scheduler service (``repro_torch.service``: WAL, checkpoints, crash
+recovery, the socket front end) and the TPU-pod cluster day
+(``repro_torch.launch.cluster_sim.run_days`` over ``repro_torch.cluster``),
+host code but for the greedy DQN's Q network, which runs on the card; every
+result against the reference's in tests/data/torch_service_golden.json
+(tests/torch_service_golden.py; rtol 1e-9, integers exact, 0 expected):
+
+46. cluster_day — ``run_days`` on the simulated 256-chip pod, 2 days each:
+              static config 3, daynight, the queue heuristic, the heuristic
+              under ``FailureModel(mtbf_minutes=8*60, seed=3)``, and
+              ``--policy dynamic``'s greedy DQN (rl_dqn_params.npz, its Q
+              network on the card) without and with those failures; the DQN
+              days again with every decision logged, each held to a CPU
+              learner's action (no flip allowed); one DQN day under
+              torch.profiler: the Q network's launches, device busy ms and
+              idle share per decision.
+47. service — ``python -m repro_torch.service replay`` and ``... serve``
+              in child processes started before ``cluster_day`` (each
+              imports torch meanwhile); the crash matrix (``daynight`` and
+              ``heuristic`` x ``partial`` and ``drain``, each killed at 3
+              seeded op indices, recovered from
+              header, checkpoint and WAL tail, resumed); fleet mode (2
+              devices) recovered from a pickled FleetStream; the replay child
+              SIGKILLed once its WAL holds 25 lines, then recovered and fed
+              the rest; the soak's full trace-scaled day (WAL < 1 MB, <= 2
+              checkpoints, resident-set growth < 200 MB over the second half,
+              p99 submit latency < 50 ms); a round trip through
+              ``ServiceServer`` on a unix socket; then 6,000 submissions to
+              the serve child over its socket (scripts/bench_service.py's
+              feed): jobs/min (floor 5,000) and p50/p95/p99 latency (p99
+              < 50 ms).
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -714,6 +746,15 @@ def main() -> int:
     phase_sweep_batched(torch)
     phase_train_parity(torch)
     phase_train(torch)
+    # the service's child processes first: each spends ~8 s importing torch,
+    # which the pod's day covers
+    children = _service_children()
+    try:
+        phase_cluster_day(torch)
+    except BaseException:
+        _stop_children(children)
+        raise
+    phase_service(torch, children)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -3685,6 +3726,250 @@ def phase_train(torch) -> None:
           f"train: checkpoints {steps}")
     check(not any(counts.values()), f"the trainer launched a model kernel: {counts}")
 
+
+
+# ------------------------- the service and the pod's day -------------------------
+
+
+def _service_golden():
+    """tests/torch_service_golden.py: the golden file's inputs and comparisons."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_service_golden
+
+    return torch_service_golden
+
+
+def _port_package(device=None):
+    """The port's classes as torch_service_golden runs them; the greedy DQN's
+    Q network on ``device`` (None: the card)."""
+    import repro_torch.core.scenarios as scenarios
+    import repro_torch.core.simulator as simulator
+    import repro_torch.distributed.fault_tolerance as fault_tolerance
+    import repro_torch.launch.cluster_sim as cluster_sim
+    import repro_torch.service as service
+
+    return _service_golden().package_from(
+        service, scenarios, cluster_sim, simulator, fault_tolerance,
+        lambda params: cluster_sim.day_policy_factory("dynamic", params, device))
+
+
+def _child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _held(G, got, want) -> dict:
+    off = G.off(got, want)
+    return {"equal": not off, "max_rel_diff": G.max_rel(got, want), "off": off[:6]}
+
+
+def _service_children() -> dict:
+    """Start ``service``'s two child processes in a temporary directory:
+    ``python -m repro_torch.service replay`` (the SIGKILL's victim, killed by
+    a watcher thread once its WAL holds REPLAY_KILL_AFTER lines) and ``...
+    serve`` (the socket load's server)."""
+    import signal
+    import tempfile
+    import threading
+
+    G = _service_golden()
+    work = Path(tempfile.mkdtemp(prefix="svc-"))
+    env = _child_env()
+    c = {"work": work, "t0": time.perf_counter(), "killed": {}, "victim_dir": work / "victim",
+         "load_dir": work / "load", "sock": work / "load.sock"}
+    c["victim"] = subprocess.Popen([sys.executable, *G.replay_argv("repro_torch", c["victim_dir"])],
+                                   env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    c["server"] = subprocess.Popen([sys.executable, "-m", "repro_torch.service",
+                                    *G.load_serve_args(c["load_dir"], c["sock"])], env=env,
+                                   stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    def watch():
+        victim = c["victim"]
+        while victim.poll() is None and time.perf_counter() - c["t0"] < 300.0:
+            n = G.wal_lines(c["victim_dir"] / "wal.jsonl")
+            if n >= G.REPLAY_KILL_AFTER:
+                victim.send_signal(signal.SIGKILL)
+                c["killed"].update(wal_lines=n, at_s=time.perf_counter() - c["t0"])
+                return
+            time.sleep(0.01)
+
+    c["watcher"] = threading.Thread(target=watch, daemon=True)
+    c["watcher"].start()
+    return c
+
+
+def _stop_children(children: dict) -> None:
+    """Kill whichever child still runs and remove the temporary directory."""
+    import shutil
+
+    for proc in (children["victim"], children["server"]):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    shutil.rmtree(children["work"], ignore_errors=True)
+
+
+def phase_service(torch, children: dict) -> None:
+    """The scheduler service, host code: the crash matrix, fleet mode, a real
+    SIGKILL of ``python -m repro_torch.service replay``, the soak's day, a
+    socket round trip and the socket load against ``serve`` (both children
+    started by :func:`_service_children`), each against the golden file."""
+    import signal
+    import threading
+
+    G = _service_golden()
+    pkg = _port_package()
+    golden = json.loads(G.GOLDEN.read_text())["service"]
+    work, victim, server, sock = children["work"], children["victim"], children["server"], children["sock"]
+    victim_dir, watcher, killed = children["victim_dir"], children["watcher"], children["killed"]
+    t_phase = time.perf_counter()
+    try:
+        _reset_counts()
+        out, seconds = {}, {}
+        t0 = time.perf_counter()
+        crash = {}
+        for policy in G.POLICIES:
+            for mode in G.MODES:
+                key = f"{policy}/{mode}"
+                want = golden["crash"][key]
+                d = work / f"crash-{policy}-{mode}"
+                oracle = G.crash_oracle(pkg, d / "oracle", policy, mode)
+                runs = G.crash_recovered(pkg, d, policy, mode)
+                crash[key] = {"uninterrupted": _held(G, oracle, want),
+                              "recovered": [{"cut": r["cut"], "recovered_ops": r["recovered_ops"],
+                                             **_held(G, r["result"], want["result"])} for r in runs]}
+        seconds["crash_matrix"] = time.perf_counter() - t0
+        out["crash"] = crash
+        t0 = time.perf_counter()
+        out["fleet"] = _held(G, G.fleet_recovered(pkg, work / "fleet"), golden["fleet"])
+        seconds["fleet"] = time.perf_counter() - t0
+        m = G.soak(pkg, work / "soak")
+        out["soak"] = {**_held(G, m.pop("result"), golden["soak"]), **m, "bounds_ok": G.soak_ok(m)}
+        seconds["soak"] = m["wall_s"]
+
+        # the SIGKILLed replay, recovered in this process and fed the rest
+        watcher.join(timeout=300.0)
+        victim.wait(timeout=60)
+        t0 = time.perf_counter()
+        resumed = G.replay_resume(pkg, victim_dir)
+        out["sigkill"] = {**_held(G, resumed.pop("result"), golden["replay"]), **resumed, **killed,
+                          "returncode": victim.returncode}
+        seconds["sigkill_resume"] = time.perf_counter() - t0
+
+        # a round trip through ServiceServer on a unix socket, in a thread
+        rt_sock = work / "rt.sock"
+        svc = pkg.SchedulerService(work / "rt", G.socket_config(pkg))
+        srv = pkg.ServiceServer(svc, rt_sock, tick_interval_s=0.01)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        pkg.wait_for_socket(rt_sock, timeout_s=10.0)
+        client = pkg.ServiceClient(rt_sock)
+        rt = G.socket_script(client)
+        client.shutdown()
+        client.close()
+        thread.join(timeout=10)
+        out["socket"] = {**_held(G, rt["result"], golden["socket"]), "checks": rt["checks"],
+                         "server_exited": not thread.is_alive() and not rt_sock.exists()}
+
+        # the socket load against the serve child
+        t0 = time.perf_counter()
+        pkg.wait_for_socket(sock, timeout_s=120.0)
+        seconds["server_ready_after_start_s"] = time.perf_counter() - children["t0"]
+        client = pkg.ServiceClient(sock)
+        load = G.load_feed(client)
+        client.shutdown()
+        client.close()
+        server.wait(timeout=60)
+        out["load"] = {**_held(G, load.pop("result"), golden["load"]), **load,
+                       "server_returncode": server.returncode}
+        seconds["load"] = time.perf_counter() - t0
+    finally:
+        _stop_children(children)
+    counts = _counts()
+    results = [c["uninterrupted"] for c in out["crash"].values()]
+    results += [r for c in out["crash"].values() for r in c["recovered"]]
+    results += [out[k] for k in ("fleet", "soak", "sigkill", "socket", "load")]
+    emit("service", **out, seconds=seconds, phase_s=time.perf_counter() - t_phase,
+         max_rel_diff=max(r["max_rel_diff"] for r in results),
+         floors={"jobs_per_min": G.LOAD_MIN_JOBS_PER_MIN, "p99_ms": G.LOAD_MAX_P99_MS},
+         model_kernel_launches=counts)
+    check(all(r["equal"] for r in results), f"service: results off the golden file: "
+          f"{[r['off'] for r in results if not r['equal']][:4]}")
+    check(sum(len(c["recovered"]) for c in out["crash"].values()) == 4 * G.CRASH_CUTS,
+          "service: the crash matrix's recovered runs")
+    check(out["soak"]["bounds_ok"], f"service: the soak's bounds: {out['soak']}")
+    check(out["sigkill"]["returncode"] == -signal.SIGKILL
+          and 0 < out["sigkill"]["known_at_recovery"] < G.REPLAY_JOBS,
+          f"service: the replay was not killed mid-feed: {out['sigkill']}")
+    check(all(out["socket"]["checks"].values()) and out["socket"]["server_exited"],
+          f"service: socket round trip {out['socket']}")
+    check(out["load"]["jobs_per_min"] >= G.LOAD_MIN_JOBS_PER_MIN and out["load"]["p99_ms"] < G.LOAD_MAX_P99_MS
+          and out["load"]["server_returncode"] == 0, f"service: the socket load's floors: {out['load']}")
+    check(not any(counts.values()), f"the service launched a model kernel: {counts}")
+
+
+def phase_cluster_day(torch) -> None:
+    """``run_days`` on the simulated pod for each golden run (the DQN's Q
+    network on the card), against the golden file; the DQN days again with
+    every decision logged and held to a CPU learner; one DQN day profiled."""
+    from repro_torch.core.rl import DQNConfig, DQNLearner, greedy_policy
+    from repro_torch.core.rl.env import FEATURE_DIM
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.launch.cluster_sim import run_days
+
+    G = _service_golden()
+    pkg = _port_package()  # the DQN on the card
+    golden = json.loads(G.GOLDEN.read_text())["cluster"]
+    t_phase = time.perf_counter()
+    _reset_counts()
+    runs = {}
+    for name, run in G.cluster_runs(pkg).items():
+        t0 = time.perf_counter()
+        got = [G.as_dict(r) for r in run()]
+        runs[name] = {**_held(G, got, golden[name]), "seconds": time.perf_counter() - t0,
+                      "jobs": [d["num_jobs"] for d in got], "repartitions": [d["repartitions"] for d in got],
+                      "energy_kwh": [d["energy_wh"] / 1e3 for d in got]}
+
+    def learner(device):
+        lrn = DQNLearner(DQNConfig(state_dim=FEATURE_DIM), device=device)
+        lrn.load(str(G.RL_PARAMS))
+        return lrn
+
+    # the DQN days again, every greedy decision logged; the CPU's actions
+    card, cpu = learner(None), learner("cpu")
+    logged, flips = {}, {}
+    for name, failures in (("dynamic", None), ("dynamic_failures", pkg.FailureModel(**G.FAILURES))):
+        log = PE.DecisionLog(card)
+        t0 = time.perf_counter()
+        got = [G.as_dict(r) for r in run_days(lambda log=log: greedy_policy(log), iterations=G.CLUSTER_DAYS,
+                                              failures=failures, seed=G.CLUSTER_SEED)]
+        f = PE.action_flips(log, cpu)
+        logged[name] = {**_held(G, got, golden[name]), "decisions": len(log.records),
+                        "seconds": time.perf_counter() - t0, "n_flips": len(f)}
+        flips[name] = f[:8]
+    # the Q network's cost: one DQN day under the profiler
+    day = PE.DecisionLog(card)
+    prof = _profile(torch, lambda: run_days(lambda: greedy_policy(day), iterations=1, seed=G.CLUSTER_SEED),
+                    top=6, host_ops=False)
+    n = max(len(day.records), 1)
+    counts = _counts()
+    results = list(runs.values()) + list(logged.values())
+    emit("cluster_day", runs=runs, logged=logged, flips=flips,
+         q_network={"day_decisions": len(day.records), "day_wall_ms": prof["wall_ms"],
+                    "launches_per_decision": prof["launches"] / n,
+                    "device_busy_ms_per_decision": (prof["device_busy_ms"] or 0.0) / n,
+                    "wall_ms_per_decision": prof["wall_ms"] / n,
+                    "device_idle_share": prof["device_idle_share"], "top": prof["top"]},
+         max_rel_diff=max(r["max_rel_diff"] for r in results), phase_s=time.perf_counter() - t_phase,
+         model_kernel_launches=counts)
+    check(all(r["equal"] for r in results),
+          f"cluster_day: days off the golden file: {[r['off'] for r in results if not r['equal']][:4]}")
+    check(all(v["n_flips"] == 0 and v["decisions"] > 0 for v in logged.values()),
+          f"cluster_day: card and CPU actions differ: {flips}")
+    check(prof["launches"] > 0, "cluster_day: the Q network launched nothing on the card")
+    check(not any(counts.values()), f"the pod's day launched a model kernel: {counts}")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -14,7 +14,11 @@ trainer (:mod:`repro_torch.core.rl`, :mod:`repro_torch.optim`,
 :mod:`repro_torch.launch.train_rl`); the evaluation path
 (:mod:`repro_torch.launch.evaluate`); the LM training path
 (:mod:`repro_torch.launch.train`: ``loss_fn``, :mod:`repro_torch.distributed`,
-:mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`); and the paper's host
+:mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`); the paper's host
 DQN trainer (``train_rl --backend host``) with the fleet layer
-(:mod:`repro_torch.fleet`).
+(:mod:`repro_torch.fleet`); the sweep engine (:mod:`repro_torch.sweep`); the
+durable scheduler service (:mod:`repro_torch.service`, host code); and the
+simulated TPU-pod cluster day (:mod:`repro_torch.cluster`,
+:mod:`repro_torch.launch.cluster_sim`,
+:mod:`repro_torch.distributed.fault_tolerance`).
 """

@@ -30,10 +30,10 @@ event queue, the event versioning, and decision-point sequencing.
 The port's own copy of ``repro.core.engine``.  Heap entries, the tie-break
 counter, the push order and every float operation are the reference's, so
 the same jobs and policy give the same :class:`SimResult` bit for bit.
-``cancel`` and ``job_disposition`` are copied for the fleet layer's
-:class:`~repro_torch.fleet.simulator.FleetStream`; the service layer's
-checkpoint bytes (``to_snapshot_bytes`` / ``from_snapshot_bytes``, the
-pickling hooks) and ``harvest_completed`` are not.
+``cancel``, ``reconfigure`` and ``job_disposition`` are the service's ops
+(:mod:`repro_torch.service`) and the fleet stream's; the engine pickles
+whole (``to_snapshot_bytes`` / ``from_snapshot_bytes``) for the service's
+checkpoints, and ``harvest_completed`` folds finished jobs out of it.
 """
 
 from __future__ import annotations
@@ -250,12 +250,17 @@ class SimulationEngine:
         self.events_processed = 0
         self._awaiting: Optional[Tuple[EventKind, int, bool]] = None
 
-        self._jobs_by_id: Dict[int, Job] = {}
-        self.arrivals_pending = 0
         # cancellation bookkeeping: ids cancelled before their arrival event
         # popped (the pop loop skips those), and every id ever cancelled
         self._cancelled_pending: set = set()
         self._cancelled_ids: set = set()
+        # completed/cancelled jobs folded out by harvest_completed(), which
+        # bounds a long-running service's memory; result() is then the
+        # harvester's to compute
+        self._harvested = 0
+
+        self._jobs_by_id: Dict[int, Job] = {}
+        self.arrivals_pending = 0
         for job in jobs:
             self._register(job)
         self._schedule_policy_timer()
@@ -677,14 +682,94 @@ class SimulationEngine:
         return ev
 
     # ------------------------------------------------------------------
+    # state capture / restore (the service's checkpoints)
+
+    def __getstate__(self) -> dict:
+        """Pickle support: the whole engine state but the live callables.
+
+        ``trace_sink`` and ``decision_hook`` are process-local observers,
+        not simulation state: they are dropped and reattached after a
+        restore.  Everything else (heap, versions, the ``itertools.count``
+        sequence, the simulator's numbers, the policy's state) round-trips
+        exactly, so a restored engine continues bit-identically.
+        """
+        state = self.__dict__.copy()
+        state["trace_sink"] = None
+        state["decision_hook"] = None
+        return state
+
+    def to_snapshot_bytes(self) -> bytes:
+        """Serialize the engine (with its simulator and policy).
+
+        Raises a clear error for a policy that does not pickle (a
+        :class:`CallbackPolicy` over a closure): the service runs only
+        registry policies, which all pickle.
+        """
+        import pickle
+
+        try:
+            return pickle.dumps(self, protocol=pickle.HIGHEST_PROTOCOL)
+        except Exception as e:
+            raise ValueError(
+                f"engine state is not picklable ({e}); checkpointing "
+                "requires a picklable policy/scheduler — CallbackPolicy "
+                "closures are not; use a registry policy "
+                "(repro_torch.service.make_policy)"
+            ) from e
+
+    @classmethod
+    def from_snapshot_bytes(
+        cls,
+        blob: bytes,
+        *,
+        trace_sink: Optional[TraceSink] = None,
+        decision_hook: Optional[Callable[[float, "MIGSimulator"], None]] = None,
+    ) -> "SimulationEngine":
+        """Restore an engine from :meth:`to_snapshot_bytes` output.
+
+        The restored engine resumes mid-run, bit-identically.  Observers are
+        not part of the snapshot; pass them here to reattach them.
+        """
+        import pickle
+
+        engine = pickle.loads(blob)
+        if not isinstance(engine, cls):
+            raise ValueError(
+                f"snapshot blob holds a {type(engine).__name__}, "
+                f"not a {cls.__name__}"
+            )
+        engine.trace_sink = trace_sink
+        engine.decision_hook = decision_hook
+        return engine
+
+    def harvest_completed(self) -> Tuple[List[Job], List[Job]]:
+        """Remove and return the (completed, cancelled) jobs so far.
+
+        A long-running service folds them into running aggregates
+        (:class:`repro_torch.service.ServiceStats`), so its memory stays
+        bounded over multi-day streams; the engine's own :meth:`result`
+        refuses once any job was folded out (it would under-count).
+        """
+        sim = self.sim
+        done, cancelled = sim.completed, sim.cancelled
+        sim.completed, sim.cancelled = [], []
+        for job in done:
+            del self._jobs_by_id[job.job_id]
+        for job in cancelled:
+            del self._jobs_by_id[job.job_id]
+            self._cancelled_ids.discard(job.job_id)
+        self._harvested += len(done) + len(cancelled)
+        return done, cancelled
+
+    # ------------------------------------------------------------------
     # observation / results
 
     def job_disposition(self, job_id: int) -> Optional[str]:
-        """Where a job currently is, or None if unknown.
+        """Where a job currently is, or None if unknown (or harvested).
 
         One of ``"pending"`` (arrival event still queued), ``"queued"``
         (arrived, unassigned), ``"running"``, ``"completed"``, or
-        ``"cancelled"``.
+        ``"cancelled"``; the service's ``status`` op reads this.
         """
         job = self._jobs_by_id.get(job_id)
         if job is None:
@@ -716,6 +801,12 @@ class SimulationEngine:
             raise RuntimeError(
                 "simulation still has pending events (or an open stream); "
                 "close_stream() and drain() it first"
+            )
+        if self._harvested:
+            raise RuntimeError(
+                f"{self._harvested} jobs were folded out by "
+                "harvest_completed(); the harvester owns the final result "
+                "(repro_torch.service.ServiceStats.result)"
             )
         sim = self.sim
         if sim.active:

@@ -11,8 +11,9 @@ work-deplete rate on a slice of ``k`` slots is its elasticity's throughput
 
 The port's own copy of ``repro.core.jobs``: the job record with its
 scheduling state, serving metadata and the laxity helpers the event-driven
-schedulers read, its kinds and the curves.  The label codec of the service's
-checkpoints (``elasticity_from_label`` and pickling by label) is not copied.
+schedulers read, its kinds, the curves, and the label codec the service's
+WAL records and checkpoints use (:func:`elasticity_from_label`; an
+:class:`Elasticity` pickles by its label).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ __all__ = [
     "LINEAR",
     "capped",
     "SUBLINEAR_CURVES",
+    "sublinear",
+    "elasticity_from_label",
 ]
 
 
@@ -66,6 +69,15 @@ class Elasticity:
             return math.inf
         return work / tp
 
+    def __reduce__(self):
+        # pickled by label, since ``_tp`` is a lambda: this keeps a Job, and
+        # so a whole SimulationEngine, picklable for the service's
+        # checkpoints.  The label is resolved now, so a curve outside the
+        # vocabulary (the cluster's roofline curves) fails when dumped, not
+        # when a checkpoint is restored.
+        elasticity_from_label(self.label)
+        return (elasticity_from_label, (self.label,))
+
 
 LINEAR = Elasticity(ElasticityClass.LINEAR, "linear", lambda k: k)
 
@@ -96,6 +108,41 @@ SUBLINEAR_CURVES: Dict[str, Elasticity] = {
     "log-0.65": Elasticity(ElasticityClass.SUBLINEAR, "log-0.65", _log_curve(0.65)),
     "log-0.45": Elasticity(ElasticityClass.SUBLINEAR, "log-0.45", _log_curve(0.45)),
 }
+
+
+def sublinear(label: str) -> Elasticity:
+    return SUBLINEAR_CURVES[label]
+
+
+def elasticity_from_label(label: str) -> Elasticity:
+    """Resolve a canonical elasticity label back to its profile.
+
+    The inverse of ``Elasticity.label`` over the whole vocabulary:
+    ``"linear"``, ``"capped@<n>g"`` and the four sublinear curve names.  A
+    label gives an object with the identical throughput function, so a
+    restored job depletes bit-identically.
+    """
+    if label == "linear":
+        return LINEAR
+    if label in SUBLINEAR_CURVES:
+        return SUBLINEAR_CURVES[label]
+    if label.startswith("capped@") and label.endswith("g"):
+        cap = int(label[len("capped@"):-1])
+        if cap in (2, 3, 4):
+            return capped(cap)
+        if cap >= 1:
+            # the serving slice classes cap at 1 and 7 too, built as
+            # repro_torch.core.serving.class_elasticity builds them
+            return Elasticity(
+                ElasticityClass.CAPPED,
+                f"capped@{cap}g",
+                lambda k, c=cap: min(k, float(c)),
+                cap=cap,
+            )
+    raise ValueError(
+        f"unknown elasticity label {label!r}; valid: 'linear', 'capped@<n>g' "
+        f"(n >= 1), or one of {sorted(SUBLINEAR_CURVES)}"
+    )
 
 
 @dataclasses.dataclass

@@ -110,6 +110,11 @@ def sample_poisson_arrivals(
     return out
 
 
+def _sample_arrivals(spec: WorkloadSpec, rng: np.random.Generator) -> List[float]:
+    """A spec's arrivals (the cluster workload draws from it too)."""
+    return sample_poisson_arrivals(spec.horizon_min, spec.rate, spec.peak_rate, rng)
+
+
 def _sample_elasticity(rng: np.random.Generator) -> Elasticity:
     u = rng.integers(0, 3)
     if u == 0:
@@ -181,7 +186,7 @@ def generate_jobs(
 ) -> List[Job]:
     """Generate one simulation's job queue (sorted by arrival)."""
     rng = np.random.default_rng(seed)
-    arrivals = sample_poisson_arrivals(spec.horizon_min, spec.rate, spec.peak_rate, rng)
+    arrivals = _sample_arrivals(spec, rng)
     if max_jobs is not None:
         arrivals = arrivals[:max_jobs]
     return jobs_from_arrivals(spec, arrivals, rng)

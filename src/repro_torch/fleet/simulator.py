@@ -308,9 +308,10 @@ class FleetSimulator:
     def open_stream(self, policy_factory: PolicyFactory) -> "FleetStream":
         """Open an incremental submission stream over this fleet.
 
-        The streaming core of online mode, exposed: a caller submits,
-        cancels, and co-advances through the returned :class:`FleetStream`
-        one operation at a time, while
+        The streaming core of online mode, exposed: the scheduler service
+        (:mod:`repro_torch.service`) submits, cancels, and co-advances
+        through the returned :class:`FleetStream` one operation at a time,
+        while
         :meth:`run` remains the batch wrapper that feeds a whole job list
         through the same code path (bit-identical by construction).
         """
@@ -415,7 +416,9 @@ class FleetStream:
     * :meth:`cancel` routes a cancellation to the engine that owns the job
       (the stream remembers every routing decision);
     * :meth:`run_until` co-advances all engines to a bound with no arrival
-      (an idle tick).
+      (the service's idle tick);
+    * the whole object pickles (engines, dispatcher state, owner map, trace)
+      for the service's checkpoints, as a single engine does.
     """
 
     def __init__(self, fleet: FleetSimulator, policy_factory: PolicyFactory) -> None:

@@ -1375,3 +1375,60 @@ def test_fleet_dqn_day_on_the_card_matches_the_golden_file(card):
     else:
         assert flips and all(f["q_gap"] <= 1e-5 * max(np.abs(log.records[f["decision"]][2]).max(), 1.0)
                              for f in flips), flips
+
+
+# ------------------------------ the pod's day ---------------------------------
+# repro_torch.launch.cluster_sim: --policy dynamic's greedy DQN, its Q network
+# on the card, on the simulated TPU pod; chip_smoke.py's cluster_day phase
+# holds every run of tests/data/torch_service_golden.json
+
+
+def test_cluster_dqn_pod_day_on_the_card_equals_the_cpus(card):
+    """One pod day (seed 5, the golden file's first ``dynamic`` day) with the
+    Q network on the card: the result equals the port's CPU run and the
+    reference's, every greedy action equals a CPU learner's, and the Q
+    network's device launches are counted (at least one a decision)."""
+    import dataclasses
+    import json
+    import sys
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.rl import DQNConfig, DQNLearner, greedy_policy
+    from repro_torch.core.rl.env import FEATURE_DIM
+    from repro_torch.launch import evaluate as PE
+    from repro_torch.launch.cluster_sim import day_policy_factory, run_days
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_service_golden as G
+
+    params = str(BASELINES / "rl_dqn_params.npz")
+    cpu = run_days(day_policy_factory("dynamic", params, "cpu"), iterations=1, seed=G.CLUSTER_SEED)
+    entry = run_days(day_policy_factory("dynamic", params), iterations=1, seed=G.CLUSTER_SEED)
+    learner = DQNLearner(DQNConfig(state_dim=FEATURE_DIM))  # device=None: the card
+    learner.load(params)
+    assert learner.device.type == "cuda"
+    log = PE.DecisionLog(learner)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run_days(lambda: greedy_policy(log), iterations=1, seed=G.CLUSTER_SEED)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    cpu_learner = DQNLearner(DQNConfig(state_dim=FEATURE_DIM), device="cpu")
+    cpu_learner.load(params)
+    assert PE.action_flips(log, cpu_learner) == []
+    assert [dataclasses.asdict(r) for r in got] == [dataclasses.asdict(r) for r in entry] == [
+        dataclasses.asdict(r) for r in cpu]
+    want = json.loads(G.GOLDEN.read_text())["cluster"]["dynamic"][0]
+    assert G.off(G.as_dict(got[0]), want) == []
+    assert len(log.records) > 0 and launches >= len(log.records)
+
+
+def test_cluster_dqn_policy_raises_when_no_card_is_present(card, monkeypatch):
+    from repro_torch.launch import cluster_sim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cluster_sim.day_policy_factory("dynamic", str(BASELINES / "rl_dqn_params.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cluster_sim.main(["--policy", "dynamic", "--iterations", "1"])

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the JAX package ``repro`` (``repro_torch`` is fine),
 nor ``ml_dtypes``, which comes with JAX and is absent on the card's machine.
 
-Nor do ``tests/torch_rl_golden.py`` and ``tests/torch_sweep_golden.py``, which
-``chip_smoke.py`` imports on a machine without JAX."""
+Nor do ``tests/torch_rl_golden.py``, ``tests/torch_sweep_golden.py`` and
+``tests/torch_service_golden.py``, which ``chip_smoke.py`` imports on a machine
+without JAX."""
 
 import ast
 from pathlib import Path
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py", ROOT / "tests" / "torch_sweep_golden.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_rl_golden.py", ROOT / "tests" / "torch_sweep_golden.py",
+    ROOT / "tests" / "torch_service_golden.py"]
 BANNED = ("jax", "repro", "ml_dtypes")
 
 
@@ -53,7 +55,10 @@ def test_port_files_exist():
              "core/rl/train", "forecast/forecaster", "forecast/policy", "sweep/cells",
              "launch/cluster_sim", "launch/evaluate", "tree", "data/pipeline",
              "checkpoint/store", "distributed/step", "launch/train", "sweep/cache",
-             "sweep/batched", "sweep/runner", "sweep/grids", "sweep/__main__")} <= listed
+             "sweep/batched", "sweep/runner", "sweep/grids", "sweep/__main__", "service/__init__",
+             "service/records", "service/wal", "service/checkpoint", "service/clock", "service/service",
+             "service/server", "service/__main__", "cluster/__init__", "cluster/pod", "cluster/elasticity",
+             "cluster/workload", "distributed/fault_tolerance", "launch/shapes")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
