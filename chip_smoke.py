@@ -141,7 +141,8 @@ kernel of the four (its step is batched torch ops):
               batch, beside the card's runs) and to the JAX
               reference's aggregates in tests/data/torch_sim_golden.json
               (integers exact; the bars of tests/test_torch_sim.py); the
-              largest difference of each aggregate per row.
+              largest difference of each aggregate per row. It runs near the
+              end, after 48, beside the dry-run's children.
 32. sim_throughput — paper-diurnal, DayNight, partial, dt 0.5 at two sizes:
               (a) 2048 rollouts at load 1.0, the width of the RL training run
               of benchmarks/baselines/rl_batched.json; (b) 256 at load 12.0,
@@ -187,11 +188,11 @@ simulator; the learner is an MLP of three matmuls (no kernel of the four):
 35. rl_host_train — the paper's host trainer (``train_rl --backend host``,
               ``train_dqn`` over ``RepartitionEnv`` at
               examples/dynamic_repartitioning_day.py's configuration, the
-              queue heuristic guiding) for 8 episodes, 2 guided, the Q network
+              queue heuristic guiding) for 4 episodes, 2 guided, the Q network
               and TD update on the card: seconds an episode, env-steps/s, TD
               updates, finite losses, peak memory; every 100th TD update
               repeated on the CPU from the card's state and batch (1e-5,
-              DESIGN.md §11); the same 8 episodes on the CPU from the same
+              DESIGN.md §11); the same 4 episodes on the CPU from the same
               initial parameters, in a child process beside the card's run,
               held to the card's (actions, rewards to 1e-9) up to the first
               decision where they part, which is reported with its TD updates
@@ -337,6 +338,26 @@ result against the reference's in tests/data/torch_service_golden.json
               feed): jobs/min (floor 5,000) and p50/p95/p99 latency (p99
               < 50 ms).
 
+Then the sharding layer and the dry-run (``repro_torch.distributed``,
+``repro_torch.launch.dryrun``); the dry-run's child processes start after
+``service``, the last timed phase, and sim_parity (31) runs beside them:
+
+48. sharded_step — an NCCL world of one (a TCP store on localhost) and a
+              1x1 mesh: gemma3-1b's smoke train step on DTensors, 4
+              ``serve`` steps and ``compressed_psum`` bit-equal to the same
+              without a mesh.
+49. dryrun  — the port's dry-run of six production cells on a fake
+              256-rank (16, 16) mesh, a child process each that does not see
+              the card, at the lowest CPU priority: per cell ok or skip, the
+              arguments and temporaries in GB a card (modelled), ``fits``,
+              FLOPs, bytes, collective bytes by kind, the roofline terms at
+              the H100's constants; nemotron ``long_500k`` must skip with the
+              reference's reason.
+50. roofline — gemma3-1b's prefill (the median of 5 timed forwards) and
+              train step (the median of steps 2-6): their model FLOPs at the
+              bf16 peak over the measured ms (``mfu``), and the FLOPs a trace
+              of each on a 1x1 mesh counts (``counted_share``).
+
 Then the card's name and power limit as nvidia-smi gives them, one JSON line
 with every kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result; so
@@ -359,9 +380,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor rate, fp32 CUDA-core rate, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (dense bf16 tensor rate, fp32 CUDA-core rate, HBM3), from their
+# one cited source, repro_torch.analysis.constants
+if (SRC / "repro_torch").is_dir():
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.constants import HBM_BW as PEAK_BYTES
+    from repro_torch.analysis.constants import PEAK_FLOPS
+else:  # chip_smoke.py without the repo: main() says so and exits 2
+    PEAK_FLOPS, PEAK_BYTES = {}, 0.0
 
 # tests/test_kernels.py ATTN_CASES: B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset, dtype
 ATTN_CASES = [
@@ -375,6 +402,7 @@ ATTN_CASES = [
 ]
 # gemma3-1b prefill: 22 local layers (window 512) and 4 global (causal) per forward
 PREFILL_B, PREFILL_S = 2, 2048
+PREFILL_TIMED = 5  # timed bf16 forwards; prefill_s is their median
 GEMMA_SHAPES = {
     "local": (PREFILL_B, PREFILL_S, PREFILL_S, 4, 1, 256, True, 512, None, 0, "bfloat16"),
     "global": (PREFILL_B, PREFILL_S, PREFILL_S, 4, 1, 256, True, None, None, 0, "bfloat16"),
@@ -589,13 +617,14 @@ SIM_BARS = {
 # load_scale): (a) the RL training width of benchmarks/baselines/rl_batched.json
 # (2048 episodes at loads 0.8-1.2), (b) the headline point of
 # benchmarks/baselines/batched_agreement.json (the paper's overload regime)
-SIM_SIZES = {"a": (2048, 1.0), "b": (256, 12.0)}
+# at 64 rollouts: the day's ~17,000 host-bound steps, not the width, set its time
+SIM_SIZES = {"a": (2048, 1.0), "b": (64, 12.0)}
 SIM_AGREEMENT = ROOT / "benchmarks" / "baselines" / "batched_agreement.json"
 SIM_HELD = 8  # rollouts of (b) held to the port's CPU run
 # steps of the window timed alone and under torch.profiler (its per-step
-# launches, busy time and idle share); a quarter of a 512-step chunk, since
+# launches, busy time and idle share); an eighth of a 512-step chunk, since
 # gathering a whole chunk's ~150 k device events took the profiler ~30 s a size
-SIM_PROFILED_STEPS = 128
+SIM_PROFILED_STEPS = 64
 
 # the on-device DQN trainer: the checked-in baseline (its parameters and
 # params_probe) and the golden file that tests/test_torch_rl.py and
@@ -614,10 +643,10 @@ RL_ROUNDS = 2  # rl_train: rounds of 64 episodes at the baseline's width
 RL_PROFILED = 4  # decisions of rl_train's profile
 
 # the paper's host trainer (train_rl --backend host, examples/
-# dynamic_repartitioning_day.py's configuration) for 8 episodes, 2 guided, on
+# dynamic_repartitioning_day.py's configuration) for 4 episodes, 2 guided, on
 # the card and, in a child process beside it, on the CPU from the same initial
 # parameters; the episodes are held to each other up to the first greedy flip
-RL_HOST_EPISODES = 8
+RL_HOST_EPISODES = 4
 RL_HOST_GUIDE = 2
 RL_HOST_PROFILED = 50  # decisions under torch.profiler, updates on
 RL_HOST_REWARD_RTOL = 1e-9  # float64 host rewards while the actions agree
@@ -674,6 +703,20 @@ TRAIN_SMOKE = False
 TRAIN_ARGS = {"steps": 6, "global_batch": 8, "seq_len": 256, "accum_steps": 1, "ckpt_every": 3}
 TRAIN_RESUME_RTOL = 1e-3
 
+# the dry-run on the production mesh of 256 H100s (a fake process group, fake
+# tensors: per-card sizes are modelled), in child processes that do not see
+# the card; and the 1x1-mesh counts of this script's gemma3-1b prefill and
+# train step, read against the times those phases measure
+DRYRUN_CELLS = [("gemma3-1b", "train_4k"), ("nemotron-4-340b", "train_4k"),
+                ("nemotron-4-340b", "decode_32k"), ("mixtral-8x7b", "decode_32k"),
+                ("jamba-v0.1-52b", "long_500k"), ("nemotron-4-340b", "long_500k")]
+# repro/launch/shapes.py SKIP_REASONS, the reference's reason
+NEMOTRON_LONG_SKIP = "pure full attention (quadratic prefill, O(seq) full-KV decode)"
+ROOFLINE_STEPS = {"prefill": ("prefill", 2048, 2), "train": ("train", 256, 8)}
+SHARDED_ARCH = "gemma3_1b"  # its smoke config on a 1x1 mesh of an NCCL world of one
+SHARDED_SHAPE = (8, 64, 2)  # global batch, sequence, accumulation
+MEASURED = {}  # times the phases measure that the roofline line reads
+
 
 T0 = time.perf_counter()
 
@@ -727,7 +770,6 @@ def main() -> int:
     phase_logits_product(torch, dev)
     a5_fa = phase_a5_attention(torch, dev)
     a5 = {name: phase_a5_model(torch, dev, name) for name in A5_PREFILL}
-    phase_sim_parity(torch)
     phase_sim_throughput(torch)
     phase_rl_parity(torch)
     phase_rl_train(torch)
@@ -755,6 +797,13 @@ def main() -> int:
         _stop_children(children)
         raise
     phase_service(torch, children)
+    # the dry-run's children trace on the CPU only; they start after the last
+    # timed phase, so that no phase's times share the host's cores with them,
+    # and run beside the checks of bits that close the script
+    dry_pool, dry_futs = _dryrun_children()
+    phase_sharded_step(torch)
+    phase_sim_parity(torch)
+    phase_dryrun(torch, dry_pool, dry_futs)
     ms_row["launches"] = launches["mamba_scan"]
     jamba_fa["launches"] = launches["flash_attention"]
     granite_fa["launches"] = granite["flash_attention"]
@@ -1090,8 +1139,15 @@ def phase_prefill(torch, dev) -> dict:
         t0 = time.perf_counter()
         lk, _ = forward(cfg, params, batch)
         torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
+        prefill_runs_s = [time.perf_counter() - t0]
         counts = _counts()
+        for _ in range(PREFILL_TIMED - 1):  # more timed forwards, after the counts are read
+            t0 = time.perf_counter()
+            forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            prefill_runs_s.append(time.perf_counter() - t0)
+        prefill_s = float(np.median(prefill_runs_s))
+        MEASURED["prefill_ms"] = prefill_s * 1e3
         launches = counts["flash_attention"]
         lr, _ = forward(cfg, params, batch, impl="ref")
         finite = bool(torch.isfinite(lk).all())
@@ -1134,7 +1190,8 @@ def phase_prefill(torch, dev) -> dict:
         fp32_launches=launches32, fp32_logit_max_abs_err=err32, fp32_logit_max_abs=scale32,
         fp32_tol=f"max|diff| <= {LOGIT_RTOL} * max|plain|",
         bf16_launches=launches, bf16_top1_agreement=top1, bf16_logit_max_abs_err=err16,
-        prefill_s=prefill_s, prefill_tok_per_s=PREFILL_B * PREFILL_S / prefill_s,
+        prefill_s=prefill_s, prefill_runs_s=prefill_runs_s,
+        prefill_tok_per_s=PREFILL_B * PREFILL_S / prefill_s,
         kernel_ms_per_forward=agg["ms"], kernel_shapes=shapes,
     )
     n_calls = sum(LAYERS_PER_FORWARD.values())
@@ -2464,19 +2521,15 @@ def _sim_jobs_part(seeds, load):
     return P.BatchedJobs.from_job_lists(lists, max_slots=P.build_tables().max_slots)
 
 
-def _sim_jobs(P, B, load):
-    """paper-diurnal's padded jobs for seeds 0 .. B-1, as ``BatchedJobs.from_job_lists``
-    makes them, drawn in worker processes: the seeded Python generator takes ~20 ms
-    a rollout at load 1 and ~230 ms at load 12."""
-    import concurrent.futures
-    import multiprocessing
-    import os
+SIM_WORKERS = max(1, min(8, os.cpu_count() or 1))
 
-    n = max(1, min(8, os.cpu_count() or 1))
-    chunks = [list(map(int, c)) for c in np.array_split(np.arange(B), n) if len(c)]
-    with concurrent.futures.ProcessPoolExecutor(
-            len(chunks), mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = list(pool.map(_sim_jobs_part, chunks, [load] * len(chunks)))
+
+def _sim_jobs(P, B, load, pool):
+    """paper-diurnal's padded jobs for seeds 0 .. B-1, as ``BatchedJobs.from_job_lists``
+    makes them, drawn in ``pool``'s worker processes: the seeded Python generator
+    takes ~20 ms a rollout at load 1 and ~230 ms at load 12."""
+    chunks = [list(map(int, c)) for c in np.array_split(np.arange(B), SIM_WORKERS) if len(c)]
+    parts = list(pool.map(_sim_jobs_part, chunks, [load] * len(chunks)))
     J = max(p.padded_jobs for p in parts)
 
     def stack(field, fill):
@@ -2539,9 +2592,9 @@ def _sim_compare(got: dict, want: dict) -> dict:
     return out
 
 
-def _sim_parity_cpu(tables, jobs, pol, mode):
+def _sim_parity_cpu(tables, jobs, pol, mode=None):
     """One group's ``simulate_batch`` on the CPU, in a child process that does
-    not see the card: the result and its seconds."""
+    not see the card: the result and its seconds (``mode`` None: the default)."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -2551,7 +2604,8 @@ def _sim_parity_cpu(tables, jobs, pol, mode):
     import repro_torch.core.batched as P
 
     t0 = time.perf_counter()
-    res = P.simulate_batch(jobs, pol, tables=tables, repartition_mode=mode, device="cpu")
+    kw = {} if mode is None else {"repartition_mode": mode}
+    res = P.simulate_batch(jobs, pol, tables=tables, device="cpu", **kw)
     return res, time.perf_counter() - t0
 
 
@@ -2615,18 +2669,34 @@ def phase_sim_parity(torch) -> None:
 def phase_sim_throughput(torch) -> None:
     """``simulate_batch`` on the card at the two sizes of SIM_SIZES: rates, and
     over SIM_PROFILED_STEPS steps the launches and busy time per step and the idle share."""
+    import concurrent.futures
+    import multiprocessing
+
     import repro_torch.core.batched as P
     from repro_torch.core.batched import backend as PB
 
     events = {p["load_scale"]: p["oracle_events_per_rollout"]
               for p in json.loads(SIM_AGREEMENT.read_text())["points"]}
     chunk, dt = P.DEFAULT_CHUNK_STEPS, P.DEFAULT_DT_MIN
+    # one pool of workers for both sizes' job draws and (b)'s CPU check: a
+    # spawned worker spends ~9 s importing torch
+    pool = concurrent.futures.ProcessPoolExecutor(
+        SIM_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     for label, (B, load) in SIM_SIZES.items():
         t0 = time.perf_counter()
         tables = P.build_tables()
-        jobs = _sim_jobs(P, B, load)
+        jobs = _sim_jobs(P, B, load, pool)
         pol = P.compile_policy(_sim_policy("daynight"), tables, B)
         setup_s = time.perf_counter() - t0
+        if label == "b":
+            # the first rollouts of (b), same padded J, run again on the CPU in a
+            # child process, beside the card's runs
+            held = slice(0, SIM_HELD)
+            j8 = dataclasses.replace(jobs, **{f.name: getattr(jobs, f.name)[held]
+                                               for f in dataclasses.fields(jobs)})
+            p8 = dataclasses.replace(pol, initial=pol.initial[held], primary=pol.primary[held],
+                                     secondary=pol.secondary[held])
+            cpu_fut = pool.submit(_sim_parity_cpu, tables, j8, p8)
         # the parallel draw is the serial one: the first rollouts, padded alike
         first = _sim_jobs_part([0, 1, 2], load)
         same = all(np.array_equal(getattr(jobs, f.name)[:3, :first.padded_jobs], getattr(first, f.name))
@@ -2684,21 +2754,14 @@ def phase_sim_throughput(torch) -> None:
             "profiled_chunk": prof,
         }
         if label == "b":
-            # the first rollouts of (b), same padded J, run again on the CPU
-            held = slice(0, SIM_HELD)
-            j8 = dataclasses.replace(jobs, **{f.name: getattr(jobs, f.name)[held]
-                                               for f in dataclasses.fields(jobs)})
-            p8 = dataclasses.replace(pol, initial=pol.initial[held], primary=pol.primary[held],
-                                     secondary=pol.secondary[held])
-            t0 = time.perf_counter()
-            cpu = P.simulate_batch(j8, p8, tables=tables, device="cpu")
-            row["cpu_first_8_s"] = time.perf_counter() - t0
+            cpu, row["cpu_first_8_s"] = cpu_fut.result()
             row["card_vs_cpu_first_8"] = _sim_compare(_aggregates(res, held), _aggregates(cpu))
         emit("sim_throughput", size=label, **row)
         if label == "b":
             check(row["card_vs_cpu_first_8"]["ok"], "sim_throughput (b): the card disagrees with the CPU")
         del state, consts, jobs, res
         torch.cuda.empty_cache()
+    pool.shutdown()
 
 
 # ----------------------------- the DQN trainer ---------------------------------
@@ -3698,6 +3761,7 @@ def phase_train(torch) -> None:
 
     k = TRAIN_ARGS["ckpt_every"]
     step_ms = float(np.median(first["step_s"][1:])) * 1e3
+    MEASURED["train_step_ms"] = step_ms
     tokens = TRAIN_ARGS["global_batch"] * TRAIN_ARGS["seq_len"]
     again = losses[k:]
     resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, again)) if resumed else None
@@ -3970,6 +4034,222 @@ def phase_cluster_day(torch) -> None:
           f"cluster_day: card and CPU actions differ: {flips}")
     check(prof["launches"] > 0, "cluster_day: the Q network launched nothing on the card")
     check(not any(counts.values()), f"the pod's day launched a model kernel: {counts}")
+
+
+# ---------------------- the sharding layer and the dry-run ----------------------
+
+
+def _dryrun_job(job):
+    """One dry-run job in a child process that does not see the card, at the
+    lowest CPU priority: a production cell's record (``run_cell`` on a fake
+    world of 256), or the count of one of this script's own gemma3-1b steps on
+    a 1x1 mesh. Fake tensors on the CPU: nothing runs."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(19)
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun as D
+
+    kind, arch, shape = job
+    t0 = time.perf_counter()
+    if kind == "cell":
+        rec = D.run_cell(arch, shape, multi_pod=False, with_cost=False, device="cpu")
+    else:
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.launch.shapes import ShapeSpec
+
+        D.fake_world(1)
+        name, seq, batch = ROOFLINE_STEPS[shape]
+        rec = D.lower_cell(arch, ShapeSpec(shape, name, seq, batch),
+                           make_smoke_mesh(1, 1, device="cpu"), device="cpu")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _dryrun_children():
+    """The dry-run's jobs, one child process each, started together."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = [("cell", a, sh) for a, sh in DRYRUN_CELLS] + [
+        ("count", "gemma3-1b", name) for name in ROOFLINE_STEPS]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {job: pool.submit(_dryrun_job, job) for job in jobs}
+
+
+def _gb(x):
+    return None if x is None else x / 1e9
+
+
+def phase_dryrun(torch, pool, futs) -> None:
+    """The port's dry-run of DRYRUN_CELLS on the (16, 16) production mesh: per
+    cell ok or skip, the arguments and temporaries in GB a card (modelled),
+    ``fits``, FLOPs, bytes, collective bytes by kind, the three roofline terms
+    at the H100's constants, the dominant one, the seconds taken. Then the
+    ``roofline`` line: the gemma3-1b prefill and train step of this script,
+    their model FLOPs' bound at the H100's bf16 peak beside the times the
+    prefill and train phases measured (the MFU), and the FLOPs a trace of
+    each on a 1x1 mesh counts."""
+    from repro_torch.analysis.constants import CHIP_FLOPS_BF16
+    from repro_torch.analysis.roofline import roofline_terms, step_model_flops
+
+    t0 = time.perf_counter()
+    try:
+        recs = {job: fut.result() for job, fut in futs.items()}
+    finally:
+        pool.shutdown()
+    waited_s = time.perf_counter() - t0
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = recs[("cell", arch, shape)]
+        row = {"arch": arch, "shape": shape, "seconds": rec["seconds"]}
+        if rec.get("skipped"):
+            row.update(status="skip", reason=rec["reason"])
+        else:
+            rec["ok"] = True
+            terms = roofline_terms(rec)
+            row.update(status="ok", args_gb=_gb(rec["argument_size_in_bytes"]),
+                       temp_gb=_gb(rec["temp_size_in_bytes"]), fits=rec["fits"],
+                       flops=rec["flops"], bytes_accessed=rec["bytes_accessed"],
+                       collectives=rec["collectives"], accum_steps=rec.get("accum_steps"),
+                       depth_extrapolated=rec.get("depth_extrapolated"),
+                       t_compute_s=terms["t_compute_s"], t_memory_s=terms["t_memory_s"],
+                       t_collective_s=terms["t_collective_s"], dominant=terms["dominant"])
+        cells.append(row)
+    emit("dryrun", devices=256, mesh="16x16", waited_s=waited_s, cells=cells,
+         notes="per card, modelled on a fake process group under FakeTensorMode (nothing ran "
+               "on a card); bytes unfused, an upper bound; flops count matmuls only")
+    for row in cells:
+        if (row["arch"], row["shape"]) == ("nemotron-4-340b", "long_500k"):
+            check(row["status"] == "skip" and row["reason"] == NEMOTRON_LONG_SKIP,
+                  f"dryrun: nemotron long_500k did not skip with the reference's reason: {row}")
+        else:
+            check(row["status"] == "ok", f"dryrun: {row['arch']} {row['shape']} did not lower")
+
+    steps = {}
+    for name, measured in (("prefill", MEASURED.get("prefill_ms")),
+                           ("train", MEASURED.get("train_step_ms"))):
+        rec = dict(recs[("count", "gemma3-1b", name)], ok=True, devices=1)
+        kind, seq, batch = ROOFLINE_STEPS[name]
+        # MFU's numerator: the model's FLOPs (2N / 6N a token, the attention
+        # the masks keep); the counted ones, at impl="ref", add the full
+        # S x S scores and the rematerialised forward
+        mf = step_model_flops("gemma3_1b", kind, seq, batch)
+        bound_ms = mf / CHIP_FLOPS_BF16 * 1e3
+        counted_ms = roofline_terms(rec)["t_compute_s"] * 1e3
+        steps[name] = {"B": batch, "S": seq, "model_flops": mf, "bound_ms": bound_ms,
+                       "bound_by": "operations", "measured_ms": measured,
+                       "mfu": bound_ms / measured if measured else None,
+                       "counted_flops": rec["flops"], "counted_bound_ms": counted_ms,
+                       "counted_share": counted_ms / measured if measured else None,
+                       "bytes_accessed_unfused": rec["bytes_accessed"]}
+    emit("roofline", arch="gemma3-1b", mesh="1x1", steps=steps,
+         notes="mfu = the step's model FLOPs (2N prefill / 6N train a token, N active, plus the "
+               "causal and 512-window attention products) at the 989 TFLOP/s bf16 peak over its "
+               "measured ms (prefill: median of 5 forwards, which run flash attention; train: "
+               "median of 5 steps); counted_* = the FLOPs a 1x1-mesh trace at impl='ref' "
+               "counts (matmuls, full S x S scores, remat); bytes unfused, an upper bound")
+    check(all(v["measured_ms"] for v in steps.values()), f"roofline: a step was not measured: {steps}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded_step(torch, device: str = "cuda", backend: str = "nccl") -> None:
+    """The sharding layer on the card: an NCCL world of one (a TCP store on
+    localhost) and a 1x1 mesh. gemma3-1b's smoke train step on DTensors
+    equals the same step without a mesh bit for bit (loss, every parameter,
+    m and v); four ``serve`` steps on the mesh equal them without it;
+    ``compressed_psum`` over the world of one equals ``ef_compress``. The
+    process group is destroyed before the next phase."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.compression import compressed_psum, ef_compress
+    from repro_torch.distributed.sharding import (
+        batch_shardings,
+        cache_shardings,
+        distribute_tree,
+        full_tree,
+        param_shardings,
+    )
+    from repro_torch.distributed.step import make_serve_step, make_train_step
+    from repro_torch.launch.mesh import make_smoke_mesh, set_ambient_mesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.tree import leaves
+
+    t_start = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh(1, 1, device=device)
+        set_ambient_mesh(None)
+        cfg = smoke_config(SHARDED_ARCH)
+        B, S, accum = SHARDED_SHAPE
+        params = init_params(cfg, seed=0, device=device)
+        opt = AdamW(AdamWConfig(lr=1e-3))
+        step = make_train_step(cfg, opt, accum_steps=accum, impl="ref")
+        batch = SyntheticLM(cfg, B, S, seed=0).batch_for_step(0)
+        plain = step(params, opt.init(leaves(params)), batch)
+
+        set_ambient_mesh(mesh)
+        t0 = time.perf_counter()
+        dp = distribute_tree(params, param_shardings(params, mesh), mesh)
+        tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        db = distribute_tree(tb, batch_shardings(tb, mesh), mesh)
+        on_mesh = step(dp, opt.init(leaves(dp)), db)
+        mesh_step_s = time.perf_counter() - t0
+        got = leaves(full_tree((on_mesh[0], on_mesh[1].m, on_mesh[1].v)))
+        want = leaves((plain[0], plain[1].m, plain[1].v))
+        train_equal = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        loss_equal = torch.equal(on_mesh[2]["loss"].full_tensor(), plain[2]["loss"])
+
+        serve = make_serve_step(cfg)
+        tok = torch.arange(B, device=device)[:, None] % cfg.vocab_size
+        set_ambient_mesh(None)
+        cache = init_cache(cfg, B, S, device=device)
+        want_logits = []
+        with torch.no_grad():  # DTensor views fail under inference_mode
+            for i in range(4):
+                lg, cache = serve(params, cache, tok + i, i)
+                want_logits.append(lg)
+        set_ambient_mesh(mesh)
+        cache = init_cache(cfg, B, S, device=device)
+        cache = distribute_tree(cache, cache_shardings(cache, mesh, B), mesh)
+        dtok = distribute_tree({"t": tok}, batch_shardings({"t": tok}, mesh), mesh)["t"]
+        serve_equal = True
+        with torch.no_grad():
+            for i in range(4):
+                lg, cache = serve(dp, cache, dtok + i, i)
+                serve_equal &= torch.equal(lg.full_tensor(), want_logits[i])
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        g = torch.randn(3 * 2048 + 77, generator=gen, device=device)
+        e = torch.randn(3 * 2048 + 77, generator=gen, device=device) * 1e-3
+        red, new_e = compressed_psum({"w": g}, {"w": e})
+        dec, err = ef_compress(g, e)
+        psum_equal = torch.equal(red["w"], dec) and torch.equal(new_e["w"], err)
+    finally:
+        set_ambient_mesh(None)
+        dist.destroy_process_group()
+    emit("sharded_step", arch=SHARDED_ARCH, smoke=True, backend=backend, mesh="1x1",
+         global_batch=B, seq_len=S, accum_steps=accum, train_bitwise=train_equal,
+         loss_bitwise=loss_equal, serve_bitwise=serve_equal, compressed_psum_equal=psum_equal,
+         mesh_step_s=mesh_step_s, seconds=time.perf_counter() - t_start)
+    check(train_equal and loss_equal, "sharded_step: the train step on the mesh differs")
+    check(serve_equal, "sharded_step: serve on the mesh differs")
+    check(psum_equal, "sharded_step: compressed_psum over one rank differs from ef_compress")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -19,6 +19,11 @@ Restore takes a *target* tree of tensors (meta or real) and casts each leaf
 to the target's dtype on the target device. ``CheckpointManager.save_async``
 copies the tree to the host before its writer thread starts, so training
 may overwrite its tensors at once.
+
+**Elastic resume**, as the reference's: a tree of DTensors is saved as full
+tensors (every rank gathers them, rank 0 writes), and ``restore_checkpoint``
+takes an optional spec tree (:mod:`repro_torch.distributed.sharding`) that
+places each leaf on the target mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -32,8 +37,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.hints import get_ambient_mesh
+from repro_torch.distributed.sharding import placements, spec_leaves
 from repro_torch.tree import flatten_with_paths, path_key, unflatten
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]
@@ -45,7 +54,10 @@ Flat = Dict[str, Tuple[np.ndarray, str]]
 
 
 def _host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """A host copy of ``leaf`` as stored, and its logical dtype name."""
+    """A host copy of ``leaf`` as stored, and its logical dtype name (a
+    DTensor gathered whole first: a collective, on every rank)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits as uint16
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -96,9 +108,23 @@ def _write(directory: str, step: int, flat: Flat, extra: Optional[Dict]) -> str:
     return ckpt_dir
 
 
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
-    """Write one checkpoint of ``tree`` (a tree of tensors); returns its directory."""
-    return _write(directory, step, _flatten(tree), extra)
+    """Write one checkpoint of ``tree`` (a tree of tensors); returns its directory.
+
+    In a process group every rank calls it (DTensor leaves are gathered),
+    rank 0 writes, and every rank returns once the checkpoint is published."""
+    flat = _flatten(tree)
+    ckpt_dir = os.path.join(directory, f"step_{step:08d}")
+    if _writes():
+        ckpt_dir = _write(directory, step, flat, extra)
+    if dist.is_initialized():
+        dist.barrier()
+    return ckpt_dir
 
 
 def _steps(directory: str) -> List[int]:
@@ -117,14 +143,25 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(
-    directory: str, step: int, target_tree: Any, *, device: DeviceLike = None
+    directory: str, step: int, target_tree: Any, shardings: Optional[Any] = None, *,
+    mesh: Optional[Any] = None, device: DeviceLike = None,
 ) -> Any:
     """Restore into the structure of ``target_tree`` (tensors, meta or real).
 
     Each leaf takes the target's shape (else ``ValueError``) and dtype (a
     cast) and lands on ``device`` (the card unless the caller passes
     ``"cpu"``). A target leaf the checkpoint lacks raises ``KeyError``.
+
+    ``shardings`` (a spec tree shaped as ``target_tree``) enables elastic
+    resume: each leaf is placed on ``mesh`` (default: the ambient mesh) with
+    its spec, regardless of the mesh that wrote the checkpoint; ``device``
+    is then the mesh's device type.
     """
+    if shardings is not None:
+        mesh = mesh if mesh is not None else get_ambient_mesh()
+        if mesh is None:
+            raise ValueError("restore_checkpoint: shardings need a mesh (none given or set)")
+        device = mesh.device_type
     dev = resolve_device(device)
     ckpt_dir = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
@@ -144,6 +181,10 @@ def restore_checkpoint(
             raise ValueError(f"{key}: checkpoint {shape} != target {tuple(leaf.shape)}")
         t = _tensor(shard_files[info["shard"]][key], info["dtype"])
         out_leaves.append(t.to(dev, dtype=leaf.dtype))
+    if shardings is not None:
+        specs = spec_leaves(shardings)
+        out_leaves = [distribute_tensor(t, mesh, placements(s, mesh))
+                      for t, s in zip(out_leaves, specs, strict=True)]
     return unflatten(target_tree, out_leaves)
 
 
@@ -170,11 +211,15 @@ class CheckpointManager:
             raise err
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
+        """Snapshot ``tree`` now and write it in a thread. In a process group
+        every rank calls it (DTensors are gathered) and rank 0 writes."""
         self.wait()
         t0 = time.perf_counter()
         flat = _flatten(tree)  # snapshot now
         timing = {"step": step, "snapshot_s": time.perf_counter() - t0}
         self.timings.append(timing)
+        if not _writes():
+            return
 
         def work():
             try:

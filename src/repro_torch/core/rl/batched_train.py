@@ -49,7 +49,9 @@ from the reference round's, and its epsilon a few ulps from
 :func:`~repro_torch.core.rl.dqn.epsilon_by_step` (which equals the reference
 function evaluated eagerly).
 
-``shard_rollouts`` is not ported: on one card it is the identity.
+:func:`shard_rollouts` places rollout-batched tensors on a 1-D ``rollout``
+mesh over a ``torch.distributed`` world; with one device it is the identity.
+The trainer runs on one card and does not call it.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Shard, distribute_tensor
 
 from repro_torch.core.batched.backend import (
     DEFAULT_DT_MIN,
@@ -89,8 +94,10 @@ from repro_torch.core.rl.env import (
     inv_mean_durations,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import flatten_with_paths, unflatten
 
 __all__ = [
+    "shard_rollouts",
     "BatchedTrainConfig",
     "BatchedTrainStats",
     "ObsTables",
@@ -522,6 +529,34 @@ def _make_round_fn(
 
 
 # ------------------------------ the outer loop -----------------------------
+
+
+def shard_rollouts(tree, mesh=None):
+    """Place rollout-batched tensors across a 1-D ``rollout`` mesh.
+
+    Leaves whose leading axis equals the batch size (that of the first leaf)
+    become DTensors sharded on it (``Shard(0)``); everything else is left as
+    it is. The mesh defaults to one over the ``torch.distributed`` world, on
+    the first leaf's device type. The identity with one device (no process
+    group, a world of 1, or a mesh of 1) or when the batch does not divide
+    the device count, as the reference's.
+    """
+    flat = [leaf for _, leaf in flatten_with_paths(tree)]
+    if not flat:
+        return tree
+    if mesh is None:
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return tree
+        mesh = init_device_mesh(flat[0].device.type, (dist.get_world_size(),),
+                                mesh_dim_names=("rollout",))
+    n = mesh.size()
+    B = int(flat[0].shape[0])
+    if n <= 1 or B % n:
+        return tree
+    return unflatten(tree, [
+        distribute_tensor(x, mesh, [Shard(0)])
+        if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == B else x
+        for x in flat])
 
 
 def _batch_arrays(jobs: BatchedJobs, inv: np.ndarray, device: torch.device) -> tuple:

@@ -8,7 +8,12 @@ by ``accum_steps``. Gradients come from autograd through the model's plain
 versions (``impl="ref"`` in the trainer, as the reference trains): the
 kernels are forward-only, so a step that would launch them raises.
 
-Every step runs on the device its parameters lie on. The parameter tree's
+Every step runs on the device its parameters lie on. On a mesh the trees
+hold DTensors (:mod:`repro_torch.distributed.sharding`): the step runs under
+``implicit_replication`` (a plain tensor made inside the model enters as
+replicated), gradients reduce through DTensor's autograd (a ``Partial``
+gradient becomes the parameter's placement), and each microbatch is pinned
+batch-sharded. With plain tensors none of this runs. The parameter tree's
 leaves are walked in JAX's order (:mod:`repro_torch.tree`), so the port's
 ``AdamW`` (which takes lists) sees the reference's leaf order and the global
 gradient norm adds in the reference's order.
@@ -16,11 +21,15 @@ gradient norm adds in the reference's order.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.distributed.hints import hint
 from repro_torch.kernels import ops
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import forward as model_forward
@@ -38,6 +47,13 @@ def _device(params: Params) -> torch.device:
     return params["embed"].device
 
 
+def _mesh_scope(params: Params):
+    """``implicit_replication`` for a tree of DTensors, else a null context."""
+    if isinstance(params["embed"], DTensor):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def _value_and_grad(cfg: ArchConfig, params: Params, batch, impl: str, loss_chunk: int = 512):
     """(loss, grads in the params' leaf order) of ``loss_fn`` at ``params``."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
@@ -48,7 +64,12 @@ def _value_and_grad(cfg: ArchConfig, params: Params, batch, impl: str, loss_chun
         loss = model_loss(cfg, unflatten(params, flat), batch, impl=impl, loss_chunk=loss_chunk,
                           device=flat[0].device)
         grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), list(grads)
+    # on a mesh each gradient takes its parameter's placements (a Partial sum
+    # is reduced, scattered where the parameter is sharded), as the optimiser
+    # state mirrors the parameters
+    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+             for p, g in zip(flat, grads, strict=True)]
+    return loss.detach(), grads
 
 
 def _microbatches(batch: Dict[str, np.ndarray], accum_steps: int) -> List[Dict[str, np.ndarray]]:
@@ -57,10 +78,12 @@ def _microbatches(batch: Dict[str, np.ndarray], accum_steps: int) -> List[Dict[s
     def reshape(x):
         b = x.shape[0]
         assert b % accum_steps == 0, (b, accum_steps)
+        x = hint(x, None)  # on a mesh the whole batch, split in the global row order
         return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
 
     split = {k: reshape(v) for k, v in batch.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(accum_steps)]
+    # on a mesh, microbatch i is the global rows i*micro.., sharded over the DP axes
+    return [{k: hint(v[i], "dp") for k, v in split.items()} for i in range(accum_steps)]
 
 
 def make_train_step(
@@ -81,11 +104,15 @@ def make_train_step(
     acc_dt = getattr(torch, grad_accum_dtype)
 
     def train_step(params: Params, opt_state: OptState, batch):
+        with _mesh_scope(params):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params: Params, opt_state: OptState, batch):
         if accum_steps == 1:
             loss, grads = _value_and_grad(cfg, params, batch, impl)
         else:
             dev = _device(params)
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=dev) for p in leaves(params)]
+            grads = [torch.zeros_like(p, dtype=acc_dt) for p in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for mb in _microbatches(batch, accum_steps):
                 l, g = _value_and_grad(cfg, params, mb, impl)
@@ -107,15 +134,16 @@ def make_serve_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
     """Returns serve_step(params, cache, token, index) -> (logits, cache).
 
     One new token per request with the KV cache / recurrent state carried
-    (updated in place). The port's ``decode_step`` picks each op's route by
-    the tensors' device, so ``impl`` is ``"auto"`` only.
+    (updated in place). ``impl`` picks the route of the ops that have a
+    kernel (the MoE's expert products, cross-attention); the dry-run serves
+    at ``"ref"``, as the reference's does.
     """
-    if impl != "auto":
-        raise ValueError(f"make_serve_step: the port's decode runs at impl='auto', not {impl!r}")
+    ops.resolve_impl(impl, torch.empty(0))  # an unknown impl raises here
 
     def serve_step(params, cache, token, index, enc_out=None):
-        return model_decode(cfg, params, cache, token, index, enc_out=enc_out,
-                            device=_device(params))
+        with _mesh_scope(params):
+            return model_decode(cfg, params, cache, token, index, enc_out=enc_out, impl=impl,
+                                device=_device(params))
 
     return serve_step
 
@@ -124,8 +152,9 @@ def make_prefill_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
     """Returns prefill_step(params, batch) -> last-position logits."""
 
     def prefill_step(params, batch):
-        logits, _ = model_forward(cfg, params, batch, impl=impl, device=_device(params))
-        return logits[:, -1, :]
+        with _mesh_scope(params):
+            logits, _ = model_forward(cfg, params, batch, impl=impl, device=_device(params))
+            return logits[:, -1, :]
 
     return prefill_step
 

@@ -6,14 +6,19 @@ Dispatch policy (``impl``):
 * ``"auto"`` — ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors.
 
 There is no fallback: a CUDA tensor under ``"auto"`` launches the kernel or
-raises.
+raises. On a mesh (a DTensor on the ambient mesh) the chosen route runs on
+each rank's local shards (:mod:`repro_torch.distributed.parallel`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
+
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gmm import gmm as gmm_kernel
@@ -45,8 +50,9 @@ def attention(
     q_offset: int = 0,
     impl: str = "auto",
 ) -> torch.Tensor:
-    fn = flash_attention if resolve_impl(impl, q) == "cuda" else attention_ref
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    fn = functools.partial(flash_attention if resolve_impl(impl, q) == "cuda" else attention_ref,
+                           causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    return fn(q, k, v) if active_mesh(q) is None else parallel.attention(fn, q, k, v)
 
 
 def mamba_scan(
@@ -60,6 +66,8 @@ def mamba_scan(
     impl: str = "auto",
 ) -> torch.Tensor:
     fn = mamba_scan_kernel if resolve_impl(impl, x) == "cuda" else mamba_scan_ref
+    if active_mesh(x) is not None:
+        return parallel.mamba_scan(fn, x, dt, A, B, C, D)
     return fn(x, dt, A, B, C, D)
 
 
@@ -76,8 +84,12 @@ def mlstm(
     as the reference's ``"ref"`` (T must be a multiple of it); the kernel
     takes its own chunk length and any T."""
     if resolve_impl(impl, q) == "cuda":
-        return mlstm_chunkwise(q, k, v, i_gate, f_gate)
-    return mlstm_chunked_scan(q, k, v, i_gate, f_gate, chunk=min(256, q.shape[1]))
+        fn = mlstm_chunkwise
+    else:
+        fn = functools.partial(mlstm_chunked_scan, chunk=min(256, q.shape[1]))
+    if active_mesh(q) is not None:
+        return parallel.mlstm(fn, q, k, v, i_gate, f_gate)
+    return fn(q, k, v, i_gate, f_gate)
 
 
 def gmm(

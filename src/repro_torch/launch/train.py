@@ -7,27 +7,45 @@ data (:class:`~repro_torch.data.SyntheticLM`), the train step at
 ``impl="ref"`` with ``remat="block"``, async checkpoints every
 ``ckpt_every`` steps, resume from the newest checkpoint, loss logging. The
 batches carry whisper-base's frame and phi-3-vision-4.2b's patch embeddings
-(``--arch whisper-base --smoke --device cpu``). There is one card and no
-mesh: ``production_mesh=True`` raises (ROADMAP.md A.7).
+(``--arch whisper-base --smoke --device cpu``).
+
+With a ``torch.distributed`` process group the trainer runs on a mesh, as the
+reference's does: ``production_mesh=True`` builds the (16, 16) production
+mesh (a world of 256 ranks; any other raises, naming that size), otherwise
+:func:`make_smoke_mesh` splits the world. Parameters and optimiser state are
+placed by :func:`param_shardings`, each rank makes its data-parallel rows of
+the batch (``SyntheticLM.shard_for_step``), checkpoints are gathered whole
+and restore onto any mesh. With no process group it runs on one device, with
+no mesh, as before.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (
+    batch_shardings,
+    distribute_tree,
+    mesh_sizes,
+    param_shardings,
+    placements,
+)
 from repro_torch.distributed.step import from_train_state, make_train_step, train_state
+from repro_torch.launch.mesh import entry_mesh
 from repro_torch.models import init_params
-from repro_torch.optim import AdamW, AdamWConfig, linear_warmup_cosine
+from repro_torch.optim import AdamW, AdamWConfig, OptState, linear_warmup_cosine
 from repro_torch.tree import leaves, unflatten
 
 __all__ = ["train", "main"]
@@ -37,6 +55,34 @@ def _meta(tree):
     """``tree`` as meta tensors: the restore's target, holding no memory."""
     return unflatten(tree, [torch.empty(t.shape, dtype=t.dtype, device="meta")
                             for t in leaves(tree)])
+
+
+def _batch(data: SyntheticLM, step: int, mesh):
+    """The step's batch: whole with no mesh; on a mesh each rank makes its
+    data-parallel rows (``shard_for_step``, one host per DP coordinate) and
+    they are joined as DTensors sharded over the DP axes."""
+    if mesh is None:
+        return data.batch_for_step(step)
+    names = list(mesh_sizes(mesh))
+    dp = [i for i, a in enumerate(names) if a != "model"]
+    hosts = math.prod(mesh.size(i) for i in dp)
+    if data.global_batch % hosts:
+        whole = {k: torch.as_tensor(v, device=mesh.device_type)
+                 for k, v in data.batch_for_step(step).items()}
+        return distribute_tree(whole, batch_shardings(whole, mesh), mesh)
+    coord = mesh.get_coordinate()
+    host = 0
+    for i in dp:
+        host = host * mesh.size(i) + coord[i]
+    local = data.shard_for_step(step, host, hosts)
+    dp_axes = tuple(names[i] for i in dp)
+    pl = placements((dp_axes if len(dp_axes) > 1 else dp_axes[0],), mesh)
+    return {k: DTensor.from_local(torch.as_tensor(v, device=mesh.device_type), mesh, pl,
+                                  run_check=False) for k, v in local.items()}
+
+
+def _scalar(x) -> float:
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
 def train(
@@ -63,18 +109,19 @@ def train(
     (``step_s``, up to the loss reaching the host), of the restore
     (``restore_s``) and the checkpoint manager's ``timings``.
     """
-    if production_mesh:
-        raise NotImplementedError(
-            "production_mesh: the port trains on one card and has no mesh yet; ROADMAP.md A.7"
-        )
     cfg = smoke_config(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(cfg, scan_layers=True, remat="block")
     dev = resolve_device(device)
+    mesh = entry_mesh(production_mesh, dev)
 
     opt = AdamW(AdamWConfig(lr=linear_warmup_cosine(lr, max(steps // 20, 1), steps)))
     step_fn = make_train_step(cfg, opt, accum_steps=accum_steps, impl="ref")
 
     params = init_params(cfg, seed=seed, device=dev)
+    specs = None
+    if mesh is not None:
+        specs = param_shardings(params, mesh)
+        params = distribute_tree(params, specs, mesh)
     opt_state = opt.init(leaves(params))
 
     data = SyntheticLM(cfg, global_batch, seq_len, seed=seed)
@@ -90,8 +137,11 @@ def train(
             t0 = time.perf_counter()
             target = _meta(train_state(params, opt_state))
             del params, opt_state  # freed before the restore allocates their successors
+            # the state's specs: m and v mirror the parameters', the step replicated
+            state_specs = None if specs is None else {
+                "params": specs, "opt": OptState(m=specs, v=specs, step=())}
             params, opt_state = from_train_state(
-                restore_checkpoint(ckpt_dir, last, target, device=dev))
+                restore_checkpoint(ckpt_dir, last, target, state_specs, mesh=mesh, device=dev))
             stats["restore_s"] = time.perf_counter() - t0
             start_step = last
             if verbose:
@@ -101,14 +151,14 @@ def train(
     t0 = time.time()
     for step in range(start_step, steps):
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, data.batch_for_step(step))
-        losses.append(float(metrics["loss"]))
+        params, opt_state, metrics = step_fn(params, opt_state, _batch(data, step, mesh))
+        losses.append(_scalar(metrics["loss"]))
         stats["step_s"].append(time.perf_counter() - t_step)
         if verbose and (step + 1) % log_every == 0:
             dt = (time.time() - t0) / max(step + 1 - start_step, 1)
             print(
                 f"step {step + 1}/{steps} loss={losses[-1]:.4f} "
-                f"gnorm={float(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms/step)"
+                f"gnorm={_scalar(metrics['grad_norm']):.3f} ({dt * 1e3:.0f} ms/step)"
             )
         if manager and (step + 1) % ckpt_every == 0:
             manager.save_async(step + 1, train_state(params, opt_state))

@@ -1,17 +1,22 @@
 """GQA attention block: full-sequence (prefill), decode against a KV cache,
 and the encoder-decoder's cross-attention.
 
-Counterpart of ``repro.models.attention``; the reference's sharding hints
-are dropped (they do nothing on one device).
+Counterpart of ``repro.models.attention``. The q, k and v projections carry
+the reference's sharding hints (heads on ``model``), which do nothing without
+a mesh.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh, axis_size, hint
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Params, apply_norm, apply_rope, dense, dense_init, norm_init
@@ -45,14 +50,22 @@ def attn_init(
     return p
 
 
+def _heads(y: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, S, H * hd) -> (B, S, H, hd). On a mesh the heads go on ``model``
+    (the reference's hint); where H does not divide that axis, the flat dim
+    is first gathered whole, as the split cannot cut a head."""
+    B, S, F = y.shape
+    y = hint(y, "dp", None, "model" if H % axis_size("model") == 0 else None)
+    return hint(y.reshape(B, S, H, F // H), "dp", None, "model", None)
+
+
 def _project_qkv(
     p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _heads(dense(p["wq"], x), cfg.n_heads)
+    k = _heads(dense(p["wk"], x), cfg.n_kv_heads)
+    v = _heads(dense(p["wv"], x), cfg.n_kv_heads)
     if cfg.qk_norm:  # before rope, as the reference does
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
@@ -109,10 +122,19 @@ def attn_decode(
     B = x.shape[0]
     positions = torch.full((B, 1), position, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    cache["k"][:, write_idx] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, write_idx] = v[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], k[:, 0], write_idx)
+    _write_slot(cache["v"], v[:, 0], write_idx)
     out = _decode_attention(q, cache["k"], cache["v"], fill_len)
     return dense(p["wo"], out.reshape(B, 1, -1)), cache
+
+
+def _write_slot(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
+    """``buf[:, idx] = new`` in place (buf (B, L, H, D), new (B, H, D)); a
+    cache on a mesh through :func:`repro_torch.distributed.parallel.write_slot`."""
+    if isinstance(buf, DTensor):
+        parallel.write_slot(buf, new, idx)
+    else:
+        buf[:, idx] = new.to(buf.dtype)
 
 
 def _decode_attention(
@@ -120,22 +142,38 @@ def _decode_attention(
     k: torch.Tensor,  # (B, L, Hkv, D)
     v: torch.Tensor,
     fill_len: int,
+    offset: int = 0,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Single-token attention against a cache, in plain torch ops (fp32).
 
     The reference has no Pallas kernel here either; it is bound by reading
-    the cache.
+    the cache. On a mesh (:func:`repro_torch.distributed.parallel.decode_attention`)
+    k and v hold the slots ``offset ..`` of a cache whose sequence may be
+    split over ranks, and ``reduce(t, op)`` combines the softmax's max, its
+    sum and the weighted values over them (split-K decoding).
     """
+    mesh = active_mesh(k)
+    if mesh is not None:
+        return parallel.decode_attention(functools.partial(_decode_attention, fill_len=fill_len),
+                                         q, k, v, mesh)
     B, L, Hkv, D = k.shape
     Hq = q.shape[2]
     g = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, 1, Hkv, g, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
-    ok = torch.arange(L, device=q.device) < fill_len
+    ok = torch.arange(L, device=q.device) + offset < fill_len
     scores = scores.masked_fill(~ok, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    if reduce is None:  # the whole sequence here
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+        return out.reshape(B, 1, Hq, D).to(q.dtype)
+    m = reduce(torch.amax(scores, dim=-1, keepdim=True), "max")
+    p = torch.exp(scores - m)
+    den = reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
+    out = reduce(torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()), "sum")
+    out = out / den[..., 0].permute(0, 3, 1, 2)[..., None]
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
@@ -163,9 +201,8 @@ def cross_attn_apply(
     decode step)."""
     B, S, _ = x.shape
     T = enc.shape[1]
-    hd = cfg.resolved_head_dim
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p["wk"], enc).reshape(B, T, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], enc).reshape(B, T, cfg.n_kv_heads, hd)
+    q = _heads(dense(p["wq"], x), cfg.n_heads)
+    k = _heads(dense(p["wk"], enc), cfg.n_kv_heads)
+    v = _heads(dense(p["wv"], enc), cfg.n_kv_heads)
     out = ops.attention(q, k, v, causal=False, window=None, impl=impl)
     return dense(p["wo"], out.reshape(B, S, -1))

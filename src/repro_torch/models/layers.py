@@ -15,6 +15,9 @@ from typing import Any, Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh
+
 __all__ = [
     "Params",
     "truncated_normal",
@@ -77,6 +80,9 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     bf16 reduction), which is the reference's ``preferred_element_type=fp32``
     followed by ``astype(x.dtype)``.
     """
+    mesh = active_mesh(w)
+    if mesh is not None:  # Megatron's tensor parallelism on local shards
+        return parallel.dense(dense, w, x, mesh)
     return torch.matmul(x, w.to(x.dtype)).to(x.dtype)
 
 

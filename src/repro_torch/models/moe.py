@@ -5,8 +5,9 @@ expert id, truncated to a fixed per-expert capacity
 ``C = ceil(T*k/E * capacity_factor)``, gathered into an (E, C, d) buffer,
 pushed through batched expert matmuls, and combined back with the router
 weights. Dispatch is integer work and matches the reference exactly, capacity
-drops included. The reference's sharding hint on the expert axis does nothing
-on one card and is dropped.
+drops included. On a mesh the layer runs on local shards with its experts
+sharded over ``model`` (:func:`repro_torch.distributed.parallel.moe`), where the reference hints its
+expert buffer onto that axis.
 
 The three expert products run through ``ops.gmm`` on the buffer flattened to
 (E*C, d) rows sorted by expert, one row block of C rows per expert: on the
@@ -24,6 +25,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import Params, activation_fn, dense_init, truncated_normal
@@ -100,7 +103,23 @@ def moe_apply(
     """Returns (output (B, S, d), aux load-balancing loss (scalar fp32)).
 
     ``impl`` picks the expert products' route (``ops.gmm``).
+
+    On a mesh (``x`` a DTensor on the ambient mesh) the layer runs on local
+    shards (:func:`repro_torch.distributed.parallel.moe`): every rank dispatches the whole batch, as
+    the reference's global dispatch does, and runs the experts it holds.
     """
+    mesh = active_mesh(x)
+    if mesh is not None:
+        return parallel.moe(lambda lp, xl, e0: _moe_local(lp, cfg, xl, impl, e0=e0), p, x, mesh)
+    return _moe_local(p, cfg, x, impl)
+
+
+def _moe_local(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, impl: str, e0: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer on plain tensors. ``p``'s expert stacks may hold the experts
+    ``e0 ..`` only, or a slice of each expert's FFN columns: the output is
+    then this holder's share of the sum."""
     mc: MoEConfig = cfg.moe  # type: ignore[assignment]
     B, S, d = x.shape
     T = B * S
@@ -115,7 +134,11 @@ def moe_apply(
 
     # --- aux loss (Switch-style load balancing) -------------------------
     me = torch.mean(probs, dim=0)  # (E,)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (T * k)
+    # the copies per expert (bincount's counts, with a static length: the
+    # dry-run traces this with no data)
+    flat = top_e.reshape(-1)
+    counts = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(0, flat, torch.ones_like(flat))
+    ce = counts.float() / (T * k)
     aux = torch.sum(me * ce) * E * mc.aux_loss_weight
 
     # --- sorted, capacity-truncated dispatch ----------------------------
@@ -138,7 +161,11 @@ def moe_apply(
     buf_idx[slot] = src_token
     xs = xt[buf_idx[: E * capacity]].reshape(E, capacity, d)
 
-    ys = _expert_ffn(p, xs, cfg.activation, impl)
+    n_local = p["w_up"].shape[-3]
+    ys = _expert_ffn(p, xs[e0 : e0 + n_local], cfg.activation, impl)
+    if n_local != E:  # expert parallel: the other experts' rows are other ranks' share
+        ys = torch.cat([ys.new_zeros((e0 * capacity, d)), ys,
+                        ys.new_zeros(((E - e0 - n_local) * capacity, d))])
 
     # combine: route each kept copy's output back to its token, weighted
     copy_w = top_w.reshape(-1)[order] * keep.float()  # (T*k,)

@@ -32,13 +32,16 @@ Each takes ``device=None``: the card unless the caller passes ``"cpu"``
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh, hint
 from repro_torch.models.attention import (
     attn_apply,
     attn_decode,
@@ -194,7 +197,9 @@ def abstract_params(cfg: ArchConfig) -> Params:
 
 def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     dt = _dtype(cfg)
-    x = params["embed"][tokens].to(dt)
+    mesh = active_mesh(params["embed"])
+    x = params["embed"][tokens] if mesh is None else parallel.embed(params["embed"], tokens, mesh)
+    x = hint(x.to(dt), "dp", None, None)
     # the reference rounds sqrt(d_model) to the activation dtype first (on the
     # host here: a device scalar would cost a synchronising copy per call)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
@@ -210,7 +215,18 @@ LOGITS_K_CHUNK = 2048
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 against the (tied) embedding, as the reference's einsum
-    with ``preferred_element_type=float32``.
+    with ``preferred_element_type=float32`` (:func:`_logits_product`). On a
+    mesh each rank takes that product on its vocabulary slice
+    (:func:`repro_torch.distributed.parallel.logits`)."""
+    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    mesh = active_mesh(unembed)
+    if mesh is not None:
+        return parallel.logits(functools.partial(_logits_product, cfg), unembed, x, mesh)
+    return _logits_product(cfg, unembed, x)
+
+
+def _logits_product(cfg: ArchConfig, unembed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x @ unembed.T`` in fp32, soft-capped as the config says.
 
     On the card, with bf16 operands and autograd not recording, that is a
     bf16 GEMM with fp32 output (``torch.mm(..., out_dtype=float32)``) over
@@ -222,7 +238,6 @@ def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     and the training path (autograd through the product) upcast both
     operands.
     """
-    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
     records = torch.is_grad_enabled() and (x.requires_grad or unembed.requires_grad)
     if (x.device.type == "cuda" and x.dtype == unembed.dtype == torch.bfloat16
             and not records):
@@ -315,6 +330,33 @@ def _ffn(
     return x, None
 
 
+def _layer(
+    cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+    impl: str,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of a pattern unit: (x, its MoE aux loss or None)."""
+    if kind == LayerKind.MLSTM:
+        return mlstm_block_apply(p["block"], cfg, x, impl=impl), None
+    if kind == LayerKind.SLSTM:
+        return slstm_block_apply(p["block"], cfg, x), None
+    # on a mesh the residual stream is pinned batch-sharded, d replicated, as
+    # the reference pins it between layers (its measured fix for gathers
+    # between blocks); the port pins it after each sub-layer too, where
+    # DTensor's propagation would otherwise shard the sequence
+    if kind in _ATTN_KINDS:
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        x = hint(x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl),
+                 "dp", None, None)
+        if enc_out is not None and "cross" in p:
+            h = apply_norm(p["cross_norm"], x, cfg.norm)
+            x = hint(x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl),
+                     "dp", None, None)
+    else:
+        x = hint(mamba_apply(p["mixer"], cfg, x, impl=impl), "dp", None, None)
+    x, a = _ffn(cfg, p, x, impl)
+    return hint(x, "dp", None, None), a
+
+
 def apply_unit(
     cfg: ArchConfig,
     unit_params: Tuple[Params, ...],  # params per unit position (one repeat)
@@ -322,28 +364,21 @@ def apply_unit(
     *,
     enc_out: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pattern unit of layers. Returns (x, the unit's summed MoE aux loss).
 
     With ``enc_out``, each attention layer that has ``cross`` attends over it
-    after its self-attention."""
+    after its self-attention. With ``remat``, each layer runs under a
+    non-reentrant ``torch.utils.checkpoint``: only its input is kept, and the
+    backward pass runs it again (the same bits)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = hint(x, "dp", None, None)
     for (kind, _), p in zip(cfg.pattern_unit(), unit_params, strict=True):
-        if kind == LayerKind.MLSTM:
-            x = mlstm_block_apply(p["block"], cfg, x, impl=impl)
-            continue
-        if kind == LayerKind.SLSTM:
-            x = slstm_block_apply(p["block"], cfg, x)
-            continue
-        if kind in _ATTN_KINDS:
-            h = apply_norm(p["norm1"], x, cfg.norm)
-            x = x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl)
-            if enc_out is not None and "cross" in p:
-                h = apply_norm(p["cross_norm"], x, cfg.norm)
-                x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl)
+        if remat:
+            x, a = checkpoint(_layer, cfg, kind, p, x, enc_out, impl, use_reentrant=False)
         else:
-            x = mamba_apply(p["mixer"], cfg, x, impl=impl)
-        x, a = _ffn(cfg, p, x, impl)
+            x, a = _layer(cfg, kind, p, x, enc_out, impl)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -374,11 +409,13 @@ def _run_blocks(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every repeat of the pattern unit over ``x``; (x, the summed MoE aux loss).
 
-    With ``cfg.remat == "block"`` and autograd recording, each unit runs
-    under a non-reentrant ``torch.utils.checkpoint``, as the reference wraps
-    its scan body in ``jax.checkpoint``: only the unit's input is kept, and
-    the backward pass runs the unit again. The values are the same bits.
-    ``enc_out`` is an input of every unit, so its gradient flows through the
+    With ``cfg.remat == "block"`` and autograd recording, each layer of a
+    unit runs under a non-reentrant ``torch.utils.checkpoint``, where the
+    reference wraps its scan body, the unit, in ``jax.checkpoint``: only the
+    layer's input is kept, and the backward pass runs the layer again. The
+    values are the same bits; a unit of many layers (gemma3-1b's 26 are one)
+    keeps one layer's activations at a time instead of the unit's.
+    ``enc_out`` is an input of every layer, so its gradient flows through the
     recomputation too.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -387,11 +424,8 @@ def _run_blocks(
         unit = tuple(_index(params["blocks"][f"u{u}"], r) for u in range(n_units))
         records = torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in leaves((x, enc_out, unit)))
-        if cfg.remat == "block" and records:
-            x, a = checkpoint(apply_unit, cfg, unit, x, enc_out=enc_out, impl=impl,
-                              use_reentrant=False)
-        else:
-            x, a = apply_unit(cfg, unit, x, enc_out=enc_out, impl=impl)
+        x, a = apply_unit(cfg, unit, x, enc_out=enc_out, impl=impl,
+                          remat=cfg.remat == "block" and records)
         aux = aux + a
     return x, aux
 
@@ -423,13 +457,33 @@ def loss_fn(
     chunk = min(loss_chunk, S)
     if S % chunk:
         chunk = S
+    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    mesh = active_mesh(x)
+    if mesh is not None:  # the vocab-parallel cross-entropy on local shards
+        ce = parallel.ce_sum(functools.partial(_ce_sum, cfg, chunk=chunk), unembed, x, labels, mesh)
+    else:
+        ce = _ce_sum(cfg, unembed, x, labels, chunk=chunk)
+    return ce / (B * S) + aux
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's ``logsumexp - gold`` (labels with a trailing 1 dim)."""
+    return torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels)[..., 0]
+
+
+def _ce_sum(
+    cfg: ArchConfig, unembed: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+    nll: Optional[Callable] = None, *, chunk: int,
+) -> torch.Tensor:
+    """``sum(logsumexp - gold)`` over the tokens, the softmax over sequence
+    chunks of ``chunk`` positions; ``nll`` (default :func:`_token_nll`)
+    gives each token's term from a chunk's logits."""
+    nll = nll or _token_nll
     sums = []
-    for c0 in range(0, S, chunk):
-        logits = _logits(cfg, params, x[:, c0 : c0 + chunk])
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0 : c0 + chunk, None])[..., 0]
-        sums.append(torch.sum(lse - gold))
-    return torch.sum(torch.stack(sums)) / (B * S) + aux
+    for c0 in range(0, x.shape[1], chunk):
+        logits = _logits_product(cfg, unembed, x[:, c0 : c0 + chunk])
+        sums.append(torch.sum(nll(logits, labels[:, c0 : c0 + chunk, None])))
+    return torch.sum(torch.stack(sums))
 
 
 # ============================== decode =====================================
@@ -469,6 +523,7 @@ def decode_step(
     index: int,  # current position
     *,
     enc_out: Optional[torch.Tensor] = None,  # (B, T, d) from :func:`encode`
+    impl: str = "auto",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step; returns (logits (B, 1, V) fp32, the cache updated in place).
@@ -479,7 +534,8 @@ def decode_step(
     products through ``ops.gmm`` at ``impl="auto"``: on the card, K4 at one
     row per expert. With ``enc_out``, every attention layer that has
     ``cross`` attends its one token over it at ``impl="auto"``: on the card,
-    flash attention at Sq = 1.
+    flash attention at Sq = 1. ``impl`` is the route of those two
+    (``"ref"``: their plain versions on any device).
     """
     dev = resolve_device(device)
     index = int(index)
@@ -506,9 +562,9 @@ def decode_step(
                 x = x + a
                 if enc_out is not None and "cross" in p:
                     h = apply_norm(p["cross_norm"], x, cfg.norm)
-                    x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl="auto")
+                    x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl)
             else:
                 x, _ = mamba_decode(p["mixer"], cfg, x, st)
-            x, _ = _ffn(cfg, p, x, "auto")
+            x, _ = _ffn(cfg, p, x, impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(cfg, params, x), cache

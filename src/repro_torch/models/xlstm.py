@@ -26,6 +26,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.hints import active_mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ArchConfig
@@ -83,8 +85,14 @@ def _conv_step(w: torch.Tensor, state: torch.Tensor, x: torch.Tensor) -> Tuple[t
     ``x``'s dtype, the new window). The taps are flipped: the window's last
     row is the current token and pairs with ``w[0]``."""
     window = torch.cat([state, x.to(state.dtype)], dim=1)
-    xc = torch.einsum("bwc,wc->bc", window.float(), torch.flip(w, dims=(0,)).float())
+    xc = torch.einsum("bwc,wc->bc", window.float(), _flip_taps(w).float())
     return F.silu(xc)[:, None, :].to(x.dtype), window[:, 1:]
+
+
+def _flip_taps(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (W, C) reversed along its taps (on a mesh, on each local shard)."""
+    mesh = active_mesh(w)
+    return torch.flip(w, dims=(0,)) if mesh is None else parallel.flip_taps(w, mesh)
 
 
 # ------------------------------ mLSTM block --------------------------------
@@ -278,6 +286,8 @@ def _slstm_gates(p: Params, h: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
 def _slstm_scan(R: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     """The recurrence over T from the empty state: gates (B, T, 4d) fp32 ->
     hidden states (B, T, d) fp32. A Python loop of a few launches a step."""
+    if active_mesh(gates) is not None:  # on a mesh: per batch row, on the local shards
+        return parallel.slstm_scan(_slstm_scan, R, gates)
     B, T, d4 = gates.shape
     d = d4 // 4
     f32 = torch.float32

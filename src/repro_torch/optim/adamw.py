@@ -52,8 +52,9 @@ class AdamW:
         dt = self._state_dtype()
         device = params[0].device if len(params) else None
         return OptState(
-            m=[torch.zeros(p.shape, dtype=dt, device=p.device) for p in params],
-            v=[torch.zeros(p.shape, dtype=dt, device=p.device) for p in params],
+            # zeros_like keeps a DTensor leaf's placements (the state mirrors the params)
+            m=[torch.zeros_like(p, dtype=dt) for p in params],
+            v=[torch.zeros_like(p, dtype=dt) for p in params],
             step=torch.zeros((), dtype=torch.int32, device=device),
         )
 

@@ -58,7 +58,10 @@ def test_port_files_exist():
              "sweep/batched", "sweep/runner", "sweep/grids", "sweep/__main__", "service/__init__",
              "service/records", "service/wal", "service/checkpoint", "service/clock", "service/service",
              "service/server", "service/__main__", "cluster/__init__", "cluster/pod", "cluster/elasticity",
-             "cluster/workload", "distributed/fault_tolerance", "launch/shapes")} <= listed
+             "cluster/workload", "distributed/fault_tolerance", "launch/shapes",
+             "distributed/sharding", "distributed/hints", "distributed/compression",
+             "launch/mesh", "launch/dryrun", "analysis/constants", "analysis/roofline",
+             "configs/paper_a100")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

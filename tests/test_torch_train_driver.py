@@ -65,5 +65,6 @@ def test_port_resumes_from_the_references_checkpoint(tmp_path):
 
 
 def test_production_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A.7"):
+    # the production mesh needs a world of 256 ranks; this process is one
+    with pytest.raises(ValueError, match="256 ranks"):
         train("gemma3_1b", steps=1, production_mesh=True, device="cpu")
