@@ -6,6 +6,11 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``. It puts
 ``repro``, builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/`` and runs these phases, each printing one JSON line:
 
+0. lint     — the port's invariant analyzer (``repro_torch.lint.lint_repo``,
+              what ``python -m repro_torch.lint`` runs) over the tree this
+              script runs from, without ``--diff`` (a shipped copy has no
+              git): the files checked, the unwaived findings (0 allowed),
+              the waived ones and the seconds (under 10 allowed).
 1. device   — the card, the toolchain, the kernel build (seconds, ptxas -v).
 2. kernels  — flash attention against its plain PyTorch version on the card:
               the attention cases of tests/test_kernels.py, cases at the
@@ -746,6 +751,7 @@ def main() -> int:
 
     from repro_torch.device import resolve_device
 
+    phase_lint()
     dev = resolve_device()
     smi = phase_device(torch)
     fa_row = phase_kernels(torch, dev)
@@ -833,6 +839,27 @@ def main() -> int:
 
 
 # ------------------------------- phases -------------------------------------
+
+
+LINT_MAX_S = 10.0
+
+
+def phase_lint() -> None:
+    """R1-R4 of ``repro_torch.lint`` over this checkout; any unwaived finding fails."""
+    from repro_torch.lint import lint_repo
+
+    t0 = time.perf_counter()
+    report = lint_repo(root=str(ROOT))
+    seconds = time.perf_counter() - t0
+    unwaived = [v for v in report.violations if not v.waived]
+    emit("lint", files=report.files_checked, unwaived=len(unwaived),
+         waived=len(report.violations) - len(unwaived), seconds=seconds,
+         exit_code=report.exit_code,
+         findings=[f"{v.path}:{v.line}: {v.rule} {v.message}" for v in unwaived[:20]])
+    check(report.files_checked > 100, f"lint checked {report.files_checked} files, expected > 100")
+    check(not unwaived and report.exit_code == 0,
+          f"repro_torch.lint: {len(unwaived)} unwaived finding(s), exit {report.exit_code}")
+    check(seconds < LINT_MAX_S, f"lint took {seconds:.2f} s, limit {LINT_MAX_S}")
 
 
 def _reset_counts():

@@ -669,7 +669,7 @@ def train_dqn_batched(
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed + 17)
 
-    t_start = time.perf_counter()
+    t_start = time.perf_counter()  # lint: waive[DT002] wall-seconds telemetry only
     ep_rewards: List[float] = []
     ep_proxy: List[float] = []
     all_losses: List[float] = []
@@ -682,7 +682,7 @@ def train_dqn_batched(
     for r in range(rounds):
         jobs = round_jobs[r]
         env0 = init_state(jobs, init_idx, dev)
-        t_r = time.perf_counter()
+        t_r = time.perf_counter()  # lint: waive[DT002] per-round wall telemetry only
         (env, params, target, opt_state, replay, gstep, updates, outs) = round_fn(
             env0, params, target, opt_state, replay, gstep, updates, generator,
             *_batch_arrays(jobs, round_inv[r], dev),
@@ -690,7 +690,7 @@ def train_dqn_batched(
         rew_hb = outs["reward"].cpu().numpy()  # (H, B)
         live_hb = outs["live"].cpu().numpy()
         loss_h = outs["loss"]
-        round_walls.append(time.perf_counter() - t_r)
+        round_walls.append(time.perf_counter() - t_r)  # lint: waive[DT002] wall telemetry only
         round_steps.append(int(live_hb.sum()))
 
         ep_rewards.extend(rew_hb.sum(axis=0).tolist())
@@ -715,7 +715,7 @@ def train_dqn_batched(
     learner.opt_state = opt_state
     learner.updates = updates
 
-    wall = time.perf_counter() - t_start
+    wall = time.perf_counter() - t_start  # lint: waive[DT002] wall telemetry only
     stats = BatchedTrainStats(
         episode_rewards=ep_rewards,
         episode_et_proxy=ep_proxy,

@@ -141,7 +141,7 @@ def train_dqn(
     )
     nstep = NStepAccumulator(cfg.n_step, cfg.gamma)
 
-    t0 = time.time()
+    t0 = time.time()  # lint: waive[DT002] wall-seconds telemetry only
     ep_rewards: List[float] = []
     ep_proxy: List[float] = []
     all_losses: List[float] = []
@@ -149,7 +149,7 @@ def train_dqn(
     ep_updates: List[int] = []
     env_steps = 0
     for ep in range(num_episodes):
-        t_ep = time.perf_counter()
+        t_ep = time.perf_counter()  # lint: waive[DT002] per-episode wall telemetry only
         updates0 = learner.updates
         ep_seed = seed * 100_003 + ep
         epsilon = learner.epsilon(ep)
@@ -188,7 +188,7 @@ def train_dqn(
         proxy = rewards.a * result.energy_wh + result.avg_tardiness
         ep_proxy.append(proxy)
         all_losses.extend(ep_losses)
-        ep_wall.append(time.perf_counter() - t_ep)
+        ep_wall.append(time.perf_counter() - t_ep)  # lint: waive[DT002] per-episode wall telemetry only
         ep_updates.append(learner.updates - updates0)
         if verbose and (ep + 1) % 10 == 0:  # pragma: no cover
             print(
@@ -201,7 +201,7 @@ def train_dqn(
         episode_et_proxy=ep_proxy,
         losses=all_losses,
         episodes=num_episodes,
-        wall_seconds=time.time() - t0,
+        wall_seconds=time.time() - t0,  # lint: waive[DT002] wall telemetry only
         env_steps=env_steps,
         episode_wall_seconds=ep_wall,
         episode_updates=ep_updates,

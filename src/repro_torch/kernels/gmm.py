@@ -52,7 +52,7 @@ _fn = None
 
 
 def _forward_fn():
-    global _fn
+    global _fn  # lint: waive[JP001] one-time lazy load of the built library; idempotent
     if _fn is None:
         _fn = _build.load("gmm").gmm_forward
         _fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -113,7 +113,7 @@ def plan(lhs: torch.Tensor, rhs: torch.Tensor, group_ids: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(lhs_shape, rhs_shape, n_blocks, dtype, out_dtype) -> Plan:
+def _plan(lhs_shape, rhs_shape, n_blocks, dtype: torch.dtype, out_dtype: torch.dtype) -> Plan:
     (M, K), (G, _, N) = lhs_shape, rhs_shape
     block_m = M // n_blocks
     if dtype == torch.float32:
@@ -134,7 +134,7 @@ def _plan_array(p: Plan) -> ctypes.Array:
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _check(lhs, rhs, group_ids, out_dtype) -> None:
+def _check(lhs, rhs, group_ids, out_dtype: torch.dtype) -> None:
     named = (("lhs", lhs), ("rhs", rhs), ("group_ids", group_ids))
     for name, t in named:
         if not t.is_cuda:
@@ -181,7 +181,9 @@ def gmm(
 
     A group id outside [0, G) is the caller's error; its rows come out NaN.
     """
-    global LAUNCHES
+    # LAUNCHES counts the launches this wrapper issues: a recompute launches again
+    # and counts; a graph replay launches without the wrapper and does not.
+    global LAUNCHES  # lint: waive[JP001] host count of this wrapper's launches (see above)
     out_dtype = lhs.dtype if out_dtype is None else out_dtype
     _check(lhs, rhs, group_ids, out_dtype)
     M, K = lhs.shape

@@ -83,6 +83,7 @@ def mlstm(
     """Chunkwise mLSTM. ``"ref"`` is the chunked scan with ``chunk=min(256, T)``,
     as the reference's ``"ref"`` (T must be a multiple of it); the kernel
     takes its own chunk length and any T."""
+    # lint: waive[JP002] dispatch on impl and q's device: static under trace and capture
     if resolve_impl(impl, q) == "cuda":
         fn = mlstm_chunkwise
     else:
@@ -103,6 +104,7 @@ def gmm(
 ) -> torch.Tensor:
     """Grouped matmul. ``"ref"`` needs ``group_sizes``, as the reference's
     ``"ref"``; the kernel takes the group of each row block (``group_ids``)."""
+    # lint: waive[JP002] dispatch on impl and lhs's device: static under trace and capture
     if resolve_impl(impl, lhs) == "cuda":
         return gmm_kernel(lhs, rhs, group_ids, out_dtype=out_dtype)
     if group_sizes is None:

@@ -306,6 +306,7 @@ def gmm_ref(
     """
     M, K = lhs.shape
     G, K2, N = rhs.shape
+    # lint: waive[JP003] ragged groups loop on the host; callers pass a list (moe: [C] * E)
     sizes = [int(s) for s in (group_sizes.tolist() if torch.is_tensor(group_sizes) else group_sizes)]
     if K2 != K or len(sizes) != G or sum(sizes) != M or min(sizes, default=0) < 0:
         raise ValueError(f"gmm_ref: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, group sizes "

@@ -14,6 +14,8 @@ driven only by the ops themselves (each op's explicit ``t`` / arrival),
 which is the mode the test suite and the replay CLI use.
 """
 
+# lint: waive-file[DT002] the replay clock IS the wall-clock boundary: it paces
+# the live service; sim-times land in the WAL, so replay never reads a clock.
 from __future__ import annotations
 
 import time

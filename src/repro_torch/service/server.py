@@ -220,9 +220,9 @@ def wait_for_socket(path: Union[str, Path], timeout_s: float = 10.0) -> None:
     """Block until a server socket exists and accepts (test/bench helper)."""
     import time
 
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + timeout_s  # lint: waive[DT002] test-helper poll deadline
     last: Optional[Exception] = None
-    while time.monotonic() < deadline:
+    while time.monotonic() < deadline:  # lint: waive[DT002] test-helper poll loop
         if os.path.exists(path):
             try:
                 ServiceClient(path, timeout=2.0).close()

@@ -185,7 +185,8 @@ class ServiceStats:
     literally the same).
     """
 
-    SCHEMA_VERSION = 1  # the reference's field set, version 1
+    SCHEMA_VERSION = 1  # the reference's field set, version 1 (repro_torch.lint SD001/SD002)
+    _schema_digest = "2623a1e3"
 
     num_completed: int = 0
     num_cancelled: int = 0

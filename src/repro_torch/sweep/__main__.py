@@ -177,7 +177,7 @@ def main(argv: List[str] | None = None) -> int:
 
     failed = 0
     for name in names:
-        t0 = time.time()  # progress-log timing only
+        t0 = time.time()  # lint: waive[DT002] progress-log timing only
         try:
             rows, outcome = run_grid(
                 name,
@@ -196,7 +196,7 @@ def main(argv: List[str] | None = None) -> int:
         print(
             f"# {name}: {outcome.total} cells "
             f"({outcome.cached_count} cached, {outcome.computed_count} computed) "
-            f"in {time.time() - t0:.1f}s -> {outcome.jsonl_path}",
+            f"in {time.time() - t0:.1f}s -> {outcome.jsonl_path}",  # lint: waive[DT002] progress log
             file=sys.stderr,
         )
         if args.check_baseline:

@@ -118,7 +118,8 @@ def run_batched_cells(
     tables = build_tables()
     results: List[Dict[str, Any]] = [{} for _ in cells]
     for idx in groups.values():
-        t0 = time.perf_counter()  # elapsed_s telemetry, never compared
+        # lint: waive[DT002] elapsed_s telemetry; stripped before baseline compare
+        t0 = time.perf_counter()
         head = cells[idx[0]]
         job_lists = [cell_jobs(cells[i]) for i in idx]
         jobs = BatchedJobs.from_job_lists(
@@ -135,7 +136,7 @@ def run_batched_cells(
             dt_min=_resolve_dt(head),
             device=dev,
         )
-        elapsed = (time.perf_counter() - t0) / len(idx)
+        elapsed = (time.perf_counter() - t0) / len(idx)  # lint: waive[DT002] telemetry only
         for i, out in zip(idx, res.to_result_dicts(), strict=True):
             out["elapsed_s"] = elapsed
             results[i] = out

@@ -117,7 +117,7 @@ def run_cells(
         # failure mode a content-addressed cache cannot flag per-cell
         cache_obj.check_version()
 
-    t0 = time.perf_counter()  # meta.json wall_s telemetry only
+    t0 = time.perf_counter()  # lint: waive[DT002] meta.json wall_s telemetry only
     cells = list(cells)
     hashes = [cell_hash(c) for c in cells]
     results: List[Optional[Dict[str, Any]]] = [None] * len(cells)
@@ -204,7 +204,7 @@ def run_cells(
                 f.write(canonical_json({"hash": h, "cell": cell, "result": result}))
                 f.write("\n")
         os.replace(tmp, jsonl_path)
-        wall_s = time.perf_counter() - t0
+        wall_s = time.perf_counter() - t0  # lint: waive[DT002] meta.json telemetry only
         with open(os.path.join(artifacts_dir, f"{name}.meta.json"), "w") as f:
             json.dump(
                 {
@@ -219,7 +219,7 @@ def run_cells(
                 indent=2,
             )
     else:
-        wall_s = time.perf_counter() - t0
+        wall_s = time.perf_counter() - t0  # lint: waive[DT002] meta.json telemetry only
 
     return SweepOutcome(
         name=name,

@@ -62,6 +62,9 @@ def test_port_files_exist():
              "distributed/sharding", "distributed/hints", "distributed/compression",
              "launch/mesh", "launch/dryrun", "analysis/constants", "analysis/roofline",
              "configs/paper_a100")} <= listed
+    assert {f"src/repro_torch/lint/{m}.py" for m in
+            ("__init__", "__main__", "base", "determinism", "purity", "schema", "version_gate",
+             "waivers", "paths")} <= listed
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
