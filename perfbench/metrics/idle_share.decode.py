@@ -1,0 +1,8 @@
+"""idle_share.decode: the share of the traced decode steps' wall time in which
+no operation ran on the device, in %."""
+
+
+def read(ctx):
+    if ctx.kind != "decode" or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
