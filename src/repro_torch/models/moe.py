@@ -15,6 +15,13 @@ card the grouped-matmul kernel K4 (``csrc/gmm.cu``), on the CPU its plain
 version. This is the route the reference's docstring names ("on TPU the
 batched expert matmul lowers to the Pallas grouped-matmul kernel"), where its
 code keeps the einsum equivalent.
+
+While a torch profiler records (:mod:`repro_torch.obs`), the layer opens the
+spans ``rt.moe.route`` (router, softmax, top-k, aux loss), ``rt.moe.dispatch``
+(sort, capacity, gather), ``rt.moe.experts`` (the expert products) and
+``rt.moe.combine`` (the weighted sum of each token's kept copies), and
+records the counter ``rt.moe.copies``: the aux loss's per-expert copy counts
+and the capacity C, from which the copies kept are sum(min(counts, C)).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.distributed import parallel
 from repro_torch.distributed.hints import active_mesh
 from repro_torch.kernels import ops
@@ -127,59 +135,66 @@ def _moe_local(
     xt = x.reshape(T, d)
     dev = x.device
 
-    logits = torch.matmul(xt.float(), p["router"])  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = torch.topk(probs, k, dim=-1, sorted=True)  # largest first, as lax.top_k
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    with obs.span("rt.moe.route"):
+        logits = torch.matmul(xt.float(), p["router"])  # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        top_w, top_e = torch.topk(probs, k, dim=-1, sorted=True)  # largest first, as lax.top_k
+        top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
 
-    # --- aux loss (Switch-style load balancing) -------------------------
-    me = torch.mean(probs, dim=0)  # (E,)
-    # the copies per expert (bincount's counts, with a static length: the
-    # dry-run traces this with no data)
-    flat = top_e.reshape(-1)
-    counts = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(0, flat, torch.ones_like(flat))
-    ce = counts.float() / (T * k)
-    aux = torch.sum(me * ce) * E * mc.aux_loss_weight
+        # --- aux loss (Switch-style load balancing) ---------------------
+        me = torch.mean(probs, dim=0)  # (E,)
+        # the copies per expert (bincount's counts, with a static length:
+        # the dry-run traces this with no data)
+        flat = top_e.reshape(-1)
+        counts = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        ce = counts.float() / (T * k)
+        aux = torch.sum(me * ce) * E * mc.aux_loss_weight
 
     # --- sorted, capacity-truncated dispatch ----------------------------
-    capacity = int(math.ceil(T * k / E * mc.capacity_factor))
-    flat_e = top_e.reshape(-1)  # (T*k,)
-    order = torch.argsort(flat_e, stable=True)  # groups copies by expert, keeps token order
-    sorted_e = flat_e[order]
-    # position of each copy within its expert group
-    pos_in_group = torch.arange(T * k, device=dev) - torch.searchsorted(
-        sorted_e, sorted_e, side="left"
-    )
-    keep = pos_in_group < capacity
-    # slot within the (E, C) buffer; dropped copies all go to one trash slot
-    slot = torch.where(keep, sorted_e * capacity + pos_in_group, E * capacity)
-    src_token = order // k  # token index of each sorted copy
+    with obs.span("rt.moe.dispatch"):
+        capacity = int(math.ceil(T * k / E * mc.capacity_factor))
+        obs.record("rt.moe.copies", counts, capacity)
+        flat_e = top_e.reshape(-1)  # (T*k,)
+        order = torch.argsort(flat_e, stable=True)  # groups copies by expert, keeps token order
+        sorted_e = flat_e[order]
+        # position of each copy within its expert group
+        pos_in_group = torch.arange(T * k, device=dev) - torch.searchsorted(
+            sorted_e, sorted_e, side="left"
+        )
+        keep = pos_in_group < capacity
+        # slot within the (E, C) buffer; dropped copies all go to one trash slot
+        slot = torch.where(keep, sorted_e * capacity + pos_in_group, E * capacity)
+        src_token = order // k  # token index of each sorted copy
 
-    # gather tokens into expert buffers (+1 trash row, dropped here); kept
-    # slots are distinct, so every row but the trash row is written once
-    buf_idx = torch.zeros(E * capacity + 1, dtype=torch.long, device=dev)
-    buf_idx[slot] = src_token
-    xs = xt[buf_idx[: E * capacity]].reshape(E, capacity, d)
+        # gather tokens into expert buffers (+1 trash row, dropped here);
+        # kept slots are distinct, so every row but the trash row is written once
+        buf_idx = torch.zeros(E * capacity + 1, dtype=torch.long, device=dev)
+        buf_idx[slot] = src_token
+        xs = xt[buf_idx[: E * capacity]].reshape(E, capacity, d)
 
-    n_local = p["w_up"].shape[-3]
-    ys = _expert_ffn(p, xs[e0 : e0 + n_local], cfg.activation, impl)
-    if n_local != E:  # expert parallel: the other experts' rows are other ranks' share
-        ys = torch.cat([ys.new_zeros((e0 * capacity, d)), ys,
-                        ys.new_zeros(((E - e0 - n_local) * capacity, d))])
+    with obs.span("rt.moe.experts"):
+        n_local = p["w_up"].shape[-3]
+        ys = _expert_ffn(p, xs[e0 : e0 + n_local], cfg.activation, impl)
+        if n_local != E:  # expert parallel: the other experts' rows are other ranks' share
+            ys = torch.cat([ys.new_zeros((e0 * capacity, d)), ys,
+                            ys.new_zeros(((E - e0 - n_local) * capacity, d))])
 
     # combine: route each kept copy's output back to its token, weighted
-    copy_w = top_w.reshape(-1)[order] * keep.float()  # (T*k,)
-    copy_out = ys[torch.clamp(slot, max=E * capacity - 1)]
-    copy_out = copy_out * copy_w[:, None].to(copy_out.dtype)
-    # The reference's ``.at[src_token].add`` adds a token's k copies one at a
-    # time in sorted order, rounding after each add. ``index_add_`` adds with
-    # atomics on CUDA, in an order that changes from run to run, so each
-    # token's copies are gathered in sorted order (the inverse of ``order``)
-    # and added in turn: the same bits on every run and device.
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=dev)
-    copies = copy_out[torch.sort(inv.reshape(T, k), dim=1).values]  # (T, k, d)
-    out = torch.zeros((T, d), dtype=copy_out.dtype, device=dev)
-    for i in range(k):
-        out = out + copies[:, i]
+    with obs.span("rt.moe.combine"):
+        copy_w = top_w.reshape(-1)[order] * keep.float()  # (T*k,)
+        copy_out = ys[torch.clamp(slot, max=E * capacity - 1)]
+        copy_out = copy_out * copy_w[:, None].to(copy_out.dtype)
+        # The reference's ``.at[src_token].add`` adds a token's k copies one
+        # at a time in sorted order, rounding after each add. ``index_add_``
+        # adds with atomics on CUDA, in an order that changes from run to
+        # run, so each token's copies are gathered in sorted order (the
+        # inverse of ``order``) and added in turn: the same bits on every run
+        # and device.
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * k, device=dev)
+        copies = copy_out[torch.sort(inv.reshape(T, k), dim=1).values]  # (T, k, d)
+        out = torch.zeros((T, d), dtype=copy_out.dtype, device=dev)
+        for i in range(k):
+            out = out + copies[:, i]
     return out.reshape(B, S, d).to(x.dtype), aux

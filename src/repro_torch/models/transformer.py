@@ -28,6 +28,16 @@ Entry points:
 
 Each takes ``device=None``: the card unless the caller passes ``"cpu"``
 (:func:`repro_torch.device.resolve_device`).
+
+While a torch profiler records (:mod:`repro_torch.obs`), ``forward`` and
+``decode_step`` open the spans ``rt.forward`` and ``rt.decode_step``; inside
+them each layer ``rt.layer.attention``, ``rt.layer.mamba``,
+``rt.layer.mlstm`` or ``rt.layer.slstm`` (with the indexing of its
+parameters and cache), and its sub-layers ``rt.attention`` (norm and
+self-attention), ``rt.mamba`` (the mixer), ``rt.moe`` (norm and MoE, whose
+own spans and counter :mod:`repro_torch.models.moe` names) or ``rt.mlp``
+(norm and dense MLP); then ``rt.logits`` (final norm and logits). The
+encoder and cross-attention have no span of their own.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import parallel
 from repro_torch.distributed.hints import active_mesh, hint
@@ -78,6 +89,10 @@ __all__ = [
 ]
 
 _ATTN_KINDS = (LayerKind.ATTN, LayerKind.LOCAL_ATTN)
+# the span of one layer of each kind (repro_torch.obs)
+_LAYER_SPAN = {LayerKind.ATTN: "rt.layer.attention", LayerKind.LOCAL_ATTN: "rt.layer.attention",
+               LayerKind.MAMBA: "rt.layer.mamba", LayerKind.MLSTM: "rt.layer.mlstm",
+               LayerKind.SLSTM: "rt.layer.slstm"}
 # self-contained xLSTM blocks (no MLP): (init, decode-state init, decode step)
 _XLSTM = {
     LayerKind.MLSTM: (mlstm_block_init, mlstm_state_init, mlstm_block_decode),
@@ -323,10 +338,12 @@ def _ffn(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's MLP or MoE sub-layer (pre-norm, residual); the MoE's aux loss or None."""
     if "moe" in p:
-        mo, aux = moe_apply(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm), impl=impl)
-        return x + mo, aux
+        with obs.span("rt.moe"):
+            mo, aux = moe_apply(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm), impl=impl)
+            return x + mo, aux
     if "mlp" in p:
-        x = x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.activation)
+        with obs.span("rt.mlp"):
+            x = x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.activation)
     return x, None
 
 
@@ -344,15 +361,17 @@ def _layer(
     # between blocks); the port pins it after each sub-layer too, where
     # DTensor's propagation would otherwise shard the sequence
     if kind in _ATTN_KINDS:
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        x = hint(x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl),
-                 "dp", None, None)
+        with obs.span("rt.attention"):
+            h = apply_norm(p["norm1"], x, cfg.norm)
+            x = hint(x + attn_apply(p["attn"], cfg, h, window=_window(cfg, kind), impl=impl),
+                     "dp", None, None)
         if enc_out is not None and "cross" in p:
             h = apply_norm(p["cross_norm"], x, cfg.norm)
             x = hint(x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl),
                      "dp", None, None)
     else:
-        x = hint(mamba_apply(p["mixer"], cfg, x, impl=impl), "dp", None, None)
+        with obs.span("rt.mamba"):
+            x = hint(mamba_apply(p["mixer"], cfg, x, impl=impl), "dp", None, None)
     x, a = _ffn(cfg, p, x, impl)
     return hint(x, "dp", None, None), a
 
@@ -372,13 +391,25 @@ def apply_unit(
     after its self-attention. With ``remat``, each layer runs under a
     non-reentrant ``torch.utils.checkpoint``: only its input is kept, and the
     backward pass runs it again (the same bits)."""
+    return _unit(cfg, unit_params, None, x, enc_out, impl, remat)
+
+
+def _unit(
+    cfg: ArchConfig, unit_params: Tuple[Params, ...], r: Optional[int], x: torch.Tensor,
+    enc_out: Optional[torch.Tensor], impl: str, remat: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_unit` over one repeat's params, or, given ``r``, over the
+    stacked params, each layer's repeat ``r`` indexed inside its layer span."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = hint(x, "dp", None, None)
     for (kind, _), p in zip(cfg.pattern_unit(), unit_params, strict=True):
-        if remat:
-            x, a = checkpoint(_layer, cfg, kind, p, x, enc_out, impl, use_reentrant=False)
-        else:
-            x, a = _layer(cfg, kind, p, x, enc_out, impl)
+        with obs.span(_LAYER_SPAN[kind]):
+            if r is not None:
+                p = _index(p, r)
+            if remat:
+                x, a = checkpoint(_layer, cfg, kind, p, x, enc_out, impl, use_reentrant=False)
+            else:
+                x, a = _layer(cfg, kind, p, x, enc_out, impl)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -397,11 +428,13 @@ def forward(
     ``batch`` holds ``tokens`` (B, S), and ``enc_frames`` (B, T, d) for an
     encoder-decoder config or ``img_embeds`` (B, P, d) for a vision one; the
     logits are the text positions' only."""
-    dev = resolve_device(device)
-    x, enc_out, n_img = _inputs(cfg, params, batch, dev, impl)
-    x, aux = _run_blocks(cfg, params, x, enc_out, impl)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(cfg, params, x[:, n_img:]), aux
+    with obs.span("rt.forward"):
+        dev = resolve_device(device)
+        x, enc_out, n_img = _inputs(cfg, params, batch, dev, impl)
+        x, aux = _run_blocks(cfg, params, x, enc_out, impl)
+        with obs.span("rt.logits"):
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return _logits(cfg, params, x[:, n_img:]), aux
 
 
 def _run_blocks(
@@ -419,13 +452,12 @@ def _run_blocks(
     recomputation too.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    n_units = len(cfg.pattern_unit())
+    # the stacks: a repeat's views require grad where their stack does
+    stacks = tuple(params["blocks"][f"u{u}"] for u in range(len(cfg.pattern_unit())))
     for r in range(cfg.num_pattern_repeats):
-        unit = tuple(_index(params["blocks"][f"u{u}"], r) for u in range(n_units))
         records = torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in leaves((x, enc_out, unit)))
-        x, a = apply_unit(cfg, unit, x, enc_out=enc_out, impl=impl,
-                          remat=cfg.remat == "block" and records)
+            t is not None and t.requires_grad for t in leaves((x, enc_out, stacks)))
+        x, a = _unit(cfg, stacks, r, x, enc_out, impl, remat=cfg.remat == "block" and records)
         aux = aux + a
     return x, aux
 
@@ -537,34 +569,45 @@ def decode_step(
     flash attention at Sq = 1. ``impl`` is the route of those two
     (``"ref"``: their plain versions on any device).
     """
-    dev = resolve_device(device)
-    index = int(index)
-    if enc_out is not None and enc_out.device.type != dev.type:
-        raise ValueError(f"enc_out lies on {enc_out.device}, not on {dev}")
-    x = _embed(cfg, params, _device_input(params, token, dev))
-    unit = cfg.pattern_unit()
-    for r in range(cfg.num_pattern_repeats):
-        for u, (kind, _) in enumerate(unit):
-            p = _index(params["blocks"][f"u{u}"], r)
-            st = _index(cache[f"u{u}"], r)
-            if kind in _XLSTM:
-                _, _, block_decode = _XLSTM[kind]
-                x, _ = block_decode(p["block"], cfg, x, st)
-                continue
-            if kind in _ATTN_KINDS:
-                window = _window(cfg, kind)
-                L = st["k"].shape[1]
-                is_ring = window is not None and L == window
-                write_idx = index % L if is_ring else min(index, L - 1)
-                fill_len = min(index + 1, L)
-                h = apply_norm(p["norm1"], x, cfg.norm)
-                a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
-                x = x + a
-                if enc_out is not None and "cross" in p:
-                    h = apply_norm(p["cross_norm"], x, cfg.norm)
-                    x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl)
-            else:
-                x, _ = mamba_decode(p["mixer"], cfg, x, st)
-            x, _ = _ffn(cfg, p, x, impl)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(cfg, params, x), cache
+    with obs.span("rt.decode_step"):
+        dev = resolve_device(device)
+        index = int(index)
+        if enc_out is not None and enc_out.device.type != dev.type:
+            raise ValueError(f"enc_out lies on {enc_out.device}, not on {dev}")
+        x = _embed(cfg, params, _device_input(params, token, dev))
+        unit = cfg.pattern_unit()
+        for r in range(cfg.num_pattern_repeats):
+            for u, (kind, _) in enumerate(unit):
+                with obs.span(_LAYER_SPAN[kind]):
+                    x = _decode_layer(cfg, kind, _index(params["blocks"][f"u{u}"], r),
+                                      _index(cache[f"u{u}"], r), x, index, enc_out, impl)
+        with obs.span("rt.logits"):
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return _logits(cfg, params, x), cache
+
+
+def _decode_layer(
+    cfg: ArchConfig, kind: str, p: Params, st: Params, x: torch.Tensor, index: int,
+    enc_out: Optional[torch.Tensor], impl: str,
+) -> torch.Tensor:
+    """One layer of :func:`decode_step` on its params ``p`` and state ``st``."""
+    if kind in _XLSTM:
+        _, _, block_decode = _XLSTM[kind]
+        return block_decode(p["block"], cfg, x, st)[0]
+    if kind in _ATTN_KINDS:
+        window = _window(cfg, kind)
+        L = st["k"].shape[1]
+        is_ring = window is not None and L == window
+        write_idx = index % L if is_ring else min(index, L - 1)
+        fill_len = min(index + 1, L)
+        with obs.span("rt.attention"):
+            h = apply_norm(p["norm1"], x, cfg.norm)
+            a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
+            x = x + a
+        if enc_out is not None and "cross" in p:
+            h = apply_norm(p["cross_norm"], x, cfg.norm)
+            x = x + cross_attn_apply(p["cross"], cfg, h, enc_out, impl=impl)
+    else:
+        with obs.span("rt.mamba"):
+            x, _ = mamba_decode(p["mixer"], cfg, x, st)
+    return _ffn(cfg, p, x, impl)[0]
