@@ -81,6 +81,16 @@ products run on the grouped-matmul kernel K4 (as jamba's MoE layers now do):
               (1e-3 fp32 output, 1e-2 bf16); at the paths' shapes the route,
               kernel, plain, bound and ``torch.bmm`` times, TFLOP/s and the
               ratios to ``torch.bmm`` and to the bound.
+17b. decode_attention — K5 (decode attention, csrc/decode_attention.cu)
+              against its plain version at mixtral's decode shape (64
+              streams, a 4,096-slot bf16 cache, 32/8 heads of 128) filled to
+              431 slots (the decode cell's) and to 4,096, and one stream over
+              the full cache (many splits): the splits, K5's time a call in a
+              CUDA graph, the bytes bound of the filled slots, the plain
+              route's time (the fp32 upcast of the whole cache the port ran
+              before K5) and ``scaled_dot_product_attention``'s over the
+              filled slots; K5 within one unit of bf16's last place of the
+              plain version.
 18. granite_attention — flash attention at the granite attention shape
               (B=2, S=2048, 24/8 heads of 64, causal, bf16) against its plain
               version, beside ``scaled_dot_product_attention``.
@@ -349,8 +359,8 @@ Then the sharding layer and the dry-run (``repro_torch.distributed``,
 
 48. sharded_step — an NCCL world of one (a TCP store on localhost) and a
               1x1 mesh: gemma3-1b's smoke train step on DTensors, 4
-              ``serve`` steps and ``compressed_psum`` bit-equal to the same
-              without a mesh.
+              ``serve`` steps (at ``impl="ref"``) and ``compressed_psum``
+              bit-equal to the same without a mesh.
 49. dryrun  — the port's dry-run of six production cells on a fake
               256-rank (16, 16) mesh, a child process each that does not see
               the card, at the lowest CPU priority: per cell ok or skip, the
@@ -505,6 +515,13 @@ BLOCK_RTOL = 1e-4
 GRANITE = "granite_moe_3b_a800m"
 # flash attention at the granite attention shape (every layer: 24/8 heads of 64, causal)
 GRANITE_ATTN = (PREFILL_B, PREFILL_S, PREFILL_S, 24, 8, 64, True, None, None, 0, "bfloat16")
+# K5 at mixtral's decode shape: streams, cache slots, kv heads, query heads a
+# kv head, head dim (bf16); the slots filled: the decode cell's (~431 a step at
+# the end of its window) and the whole cache; then one stream at a full cache
+DECODE_ATTN_SHAPE = (64, 4096, 8, 4, 128)
+DECODE_ATTN_FILLS = (431, 4096)
+L2_BYTES = 50 * 2**20  # the H100's L2: a case that fits is timed from a warm L2
+
 # K4: tests/test_kernels.py's gmm cases as (group sizes, K, N), every group one
 # row block, then a ragged one (K and N multiples of 8 but of no tile; row
 # blocks of 200 rows, cut into tiles of 128 and 72)
@@ -584,6 +601,13 @@ A5_ATTN = {
 # depth above; the decode check (fp32, 16 steps against forward) on the same
 # parameters
 A5_DECODE_STEPS = 16
+# K5 against its plain version at each shape this script's decode paths give
+# it: per config with self-attention, the fp32 decode phases' (one stream, a
+# 32-slot cache, 16 steps) and the bf16 serve phases' (4 streams, 128 slots,
+# 32 steps) at their first, last and a full cache: (streams, slots, dtype,
+# fills); the sliding-window configs also over a full ring of their window
+DECODE_ATTN_CONFIGS = ("gemma3_1b", GEMMA12, JAMBA, GRANITE, MIXTRAL, NEMOTRON, STABLELM, PHI3V, WHISPER)
+DECODE_ATTN_PATHS = ((1, 32, "float32", (1, 16, 32)), (4, 128, "bfloat16", (1, 32, 128)))
 
 # the logits product (ROADMAP.md A.P1) at gemma3-1b's prefill (B 2 x S 2,048
 # rows against its tied 262,144 x 1,152 embedding) and nemotron's (1 x 4,096
@@ -769,6 +793,7 @@ def main() -> int:
     phase_xlstm_decode(torch, dev)
     phase_xlstm_serve(torch)
     gmm_row, gmm_paths = phase_gmm_kernels(torch, dev)
+    da_row = phase_decode_attention(torch, dev)
     granite_fa = phase_granite_attention(torch, dev)
     granite = phase_granite_prefill(torch, dev)
     phase_granite_decode(torch, dev)
@@ -831,7 +856,7 @@ def main() -> int:
     fa_row["by_path"] = {"gemma3_1b": gemma_fa, JAMBA: jamba_fa, GRANITE: granite_fa, **a5_fa}
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [fa_row, ms_row, ml_row, gmm_row]}), flush=True)
+    print(json.dumps({"kernels": [fa_row, ms_row, ml_row, gmm_row, da_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -864,22 +889,35 @@ def phase_lint() -> None:
 
 def _reset_counts():
     """Every kernel's launch count to 0, just before a main path is driven."""
+    import repro_torch.kernels.decode_attention as da
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.gmm as gk
     import repro_torch.kernels.mamba_scan as ms
     import repro_torch.kernels.mlstm as ml
 
-    fa.LAUNCHES = ms.LAUNCHES = ml.LAUNCHES = gk.LAUNCHES = 0
+    fa.LAUNCHES = ms.LAUNCHES = ml.LAUNCHES = gk.LAUNCHES = da.LAUNCHES = 0
 
 
 def _counts() -> dict:
+    import repro_torch.kernels.decode_attention as da
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.gmm as gk
     import repro_torch.kernels.mamba_scan as ms
     import repro_torch.kernels.mlstm as ml
 
     return {"flash_attention": fa.LAUNCHES, "mamba_scan": ms.LAUNCHES, "mlstm": ml.LAUNCHES,
-            "gmm": gk.LAUNCHES}
+            "gmm": gk.LAUNCHES, "decode_attention": da.LAUNCHES}
+
+
+def _check_decode_counts(counts: dict, cfg, steps: int, what: str) -> None:
+    """The launches of ``steps`` decode steps of a config with no
+    cross-attention: K5 once a self-attention layer a step (one split: these
+    caches fill at most 32 slots, one tile), K4 three times an MoE layer a
+    step, no other kernel (the mamba mixer's one-token step is plain torch)."""
+    n_moe = sum(m for _, m in cfg.pattern_unit()) * cfg.num_pattern_repeats
+    want = {"flash_attention": 0, "mamba_scan": 0, "mlstm": 0, "gmm": 3 * n_moe * steps,
+            "decode_attention": _n_attention(cfg) * steps}
+    check(counts == want, f"{what} launched {counts}, expected {want}")
 
 
 def phase_device(torch) -> str:
@@ -1247,9 +1285,12 @@ def phase_decode(torch, dev) -> None:
         full, _ = forward(cfg, params, {"tokens": tokens})
         cache = init_cache(cfg, 1, 32)
         steps = []
+        torch.cuda.synchronize()
+        _reset_counts()
         for i in range(S):
             lg, cache = decode_step(cfg, params, cache, tokens[:, i : i + 1], i)
             steps.append(lg[:, 0])
+        counts = _counts()
         dec = torch.stack(steps, dim=1)
         err = (dec - full).abs().max().item()
         err_last = (dec[:, -1] - full[:, -1]).abs().max().item()
@@ -1257,8 +1298,10 @@ def phase_decode(torch, dev) -> None:
         ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2))
         del params, cache, full, dec
         torch.cuda.empty_cache()
-    emit("decode", steps=S, max_abs_err=err, last_step_max_abs_err=err_last, tol="atol=rtol=2e-2")
+    emit("decode", steps=S, max_abs_err=err, last_step_max_abs_err=err_last, tol="atol=rtol=2e-2",
+         launches=counts)
     check(ok, f"decode_step logits disagree with forward: max abs err {err}")
+    _check_decode_counts(counts, cfg, S, "gemma3-1b decode")
 
 
 def _profile(torch, fn, top=8, groups=None, host_ops=True) -> dict:
@@ -1323,10 +1366,15 @@ def phase_profile(torch, dev) -> None:
 def phase_serve(torch) -> None:
     from repro_torch.launch.serve import serve
 
+    from repro_torch.configs import get_config
+
     batch, steps = 4, 32
+    _reset_counts()
     tps = serve("gemma3_1b", smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
-    emit("serve", batch=batch, steps=steps, tok_per_s=tps, ms_per_step=batch / tps * 1e3)
+    counts = _counts()
+    emit("serve", batch=batch, steps=steps, tok_per_s=tps, ms_per_step=batch / tps * 1e3, launches=counts)
     check(tps > 0, "serve returned no rate")
+    _check_decode_counts(counts, get_config("gemma3_1b"), steps, "gemma3-1b serve")
 
 
 # ------------------------------ jamba phases ---------------------------------
@@ -1577,7 +1625,8 @@ def phase_jamba_prefill(torch, dev) -> dict:
         fp32_mixer_tol=f"max|diff| <= {MIXER_RTOL} * max|plain|",
     )
     emit("jamba_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof)
-    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn, "mlstm": 0, "gmm": 3 * n_moe},
+    check(counts == {"mamba_scan": n_mamba, "flash_attention": n_attn, "mlstm": 0, "gmm": 3 * n_moe,
+                     "decode_attention": 0},
           f"jamba forward launched {counts}, expected {n_mamba} scans, {n_attn} attention and "
           f"{3 * n_moe} grouped products")
     check(finite, "jamba bf16 logits or aux are not finite")
@@ -1601,9 +1650,12 @@ def phase_jamba_decode(torch, dev) -> None:
         full, _ = forward(cfg, params, {"tokens": tokens})
         cache = init_cache(cfg, 1, 32)
         steps = []
+        torch.cuda.synchronize()
+        _reset_counts()
         for i in range(S):
             lg, cache = decode_step(cfg, params, cache, tokens[:, i : i + 1], i)
             steps.append(lg[:, 0])
+        counts = _counts()
         dec = torch.stack(steps, dim=1)
         err = (dec - full).abs().max().item()
         ok = bool(torch.allclose(dec, full, atol=2e-2, rtol=2e-2))
@@ -1611,8 +1663,9 @@ def phase_jamba_decode(torch, dev) -> None:
         del params, cache, full, dec
         torch.cuda.empty_cache()
     emit("jamba_decode", n_layers=cfg.n_layers, steps=S, max_abs_err=err, tol="atol=rtol=2e-2",
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+         launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(finite and ok, f"jamba decode_step logits disagree with forward: max abs err {err}")
+    _check_decode_counts(counts, cfg, S, "jamba decode")
 
 
 def phase_jamba_serve(torch) -> None:
@@ -1620,12 +1673,15 @@ def phase_jamba_serve(torch) -> None:
 
     batch, steps = 4, 32
     torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     tps = serve(JAMBA, smoke=False, n_layers=JAMBA_LAYERS, batch=batch, steps=steps, max_len=128,
                 verbose=False)
+    counts = _counts()
     torch.cuda.empty_cache()
     emit("jamba_serve", n_layers=JAMBA_LAYERS, batch=batch, steps=steps, tok_per_s=tps,
-         ms_per_step=batch / tps * 1e3, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+         ms_per_step=batch / tps * 1e3, launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "jamba serve returned no rate")
+    _check_decode_counts(counts, _cfg(JAMBA), steps, "jamba serve")
 
 
 # ------------------------------ xlstm phases ---------------------------------
@@ -1882,7 +1938,7 @@ def phase_xlstm_prefill(torch, dev) -> dict:
          k3_pass_ms={k: prefill_prof["group_ms"][k] for k in _K3_KERNELS if prefill_prof["group_ms"][k]},
          forward_ms=forward_ms, slstm_loop_ms=loops.tolist(), slstm_steps=PREFILL_S,
          slstm_loop_share_of_wall=float(loops.sum() / np.median(forward_ms)))
-    check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+    check(counts == {"mlstm": n_mlstm, "flash_attention": 0, "mamba_scan": 0, "gmm": 0, "decode_attention": 0},
           f"xlstm forward launched {counts}, expected {n_mlstm} mLSTM kernels and no other")
     check(finite, "xlstm bf16 logits are not finite")
     check(top1 >= TOP1_MIN, f"xlstm bf16 top-1 agreement kernel vs plain {top1} < {TOP1_MIN}")
@@ -2105,6 +2161,135 @@ def phase_gmm_kernels(torch, dev):
     }, by_path
 
 
+def phase_decode_attention(torch, dev) -> dict:
+    """K5 against its plain version at mixtral's decode shape, with its time
+    (in a CUDA graph; ``ms_eager`` adds the wrapper's host cost), the bytes
+    bound of the filled slots, the plain route's time and
+    ``scaled_dot_product_attention``'s over the filled slots (timed only: the
+    port never calls it), both outputs' precision against the fp32 result;
+    then K5 against its plain version at every shape the script's decode
+    paths give it. Returns K5's row."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.decode_attention as da
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    B, L, Hkv, g, D = DECODE_ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(33)
+    q = torch.randn((B, 1, Hkv * g, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, L, Hkv, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    rows = []
+    for b, fill in [*((B, f) for f in DECODE_ATTN_FILLS), (1, L)]:
+        qb, kb, vb = q[:b], k[:b], v[:b]
+        p = da.plan(qb, kb, vb, fill, da._sms(dev))
+        got = da.decode_attention(qb, kb, vb, fill)
+        want = decode_attention_ref(qb, kb, vb, fill)
+        gap = (got.float() - want.float()).abs()
+        ok = bool((gap <= 2.0**-7 * want.float().abs() + 1e-6).all())
+        nbytes = 2 * D * (2 * b * Hkv * g + 2 * b * fill * Hkv)  # q and out, K and V of the filled slots
+        flops = 4 * D * b * Hkv * g * fill
+
+        def kernel():
+            return da.decode_attention(qb, kb, vb, fill)
+
+        def library():
+            return F.scaled_dot_product_attention(qb.transpose(1, 2), kb[:, :fill].transpose(1, 2),
+                                                  vb[:, :fill].transpose(1, 2), enable_gqa=True)
+
+        row = {"B": b, "fill": fill, "splits": p.splits, "blocks": p.blocks, "launches": p.launches,
+               "ok": ok, "max_abs_err": gap.max().item(), "gbytes": nbytes / 1e9, "l2_warm": nbytes < L2_BYTES,
+               "ms": _graph_ms(torch, kernel), "ms_eager": _cuda_ms(torch, kernel),
+               "plain_ms": _cuda_ms(torch, lambda: decode_attention_ref(qb, kb, vb, fill), iters=5, warmup=1),
+               "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FLOPS["bfloat16"] else "operations"}
+        # precision against the fp32 result of the same function (q is exact in
+        # fp32): of the bf16 outputs, the share that is not that result
+        # rounded to bf16 and the largest gap; and K5's fp32 output for an
+        # fp32 q over the bf16 cache, a route SDPA does not take (one dtype)
+        exact = decode_attention_ref(qb.float(), kb, vb, fill)
+        rounded = exact.to(torch.bfloat16)
+        row.update({"fp32_max_abs_err": (got.float() - exact).abs().max().item(),
+                    "not_rounded_share": (got != rounded).float().mean().item(),
+                    "fp32_q_max_abs_err": (da.decode_attention(qb.float(), kb, vb, fill) - exact)
+                    .abs().max().item()})
+        try:
+            lib = library().transpose(1, 2)
+            row["library_ms"] = _graph_ms(torch, library)
+            row["library_max_abs_err"] = (lib.float() - want.float()).abs().max().item()
+            row["library_fp32_max_abs_err"] = (lib.float() - exact).abs().max().item()
+            row["library_not_rounded_share"] = (lib != rounded).float().mean().item()
+        except (TypeError, RuntimeError) as err:  # an SDPA without enable_gqa
+            row["library_ms"], row["library_error"] = None, str(err)[:200]
+        del exact, rounded
+        row.update({"ratio_to_bound": row["ms"] / row["bound_ms"], "tb_per_s": nbytes / row["ms"] / 1e9,
+                    "ratio_to_plain": row["ms"] / row["plain_ms"]})
+        rows.append(row)
+        del got, want, gap
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("decode_attention", shape=dict(zip(("B", "L", "Hkv", "g", "D"), DECODE_ATTN_SHAPE)), cases=rows,
+         tol="within one unit of bf16's last place of the plain version",
+         ptxas=_build.build_all()["decode_attention"].ptxas)
+    check(all(r["ok"] for r in rows), "decode_attention disagrees with decode_attention_ref: "
+          + json.dumps([r for r in rows if not r["ok"]]))
+    paths = _k5_path_cases(torch, dev)
+    emit("decode_attention_paths", cases=paths,
+         tol="fp32: atol=rtol=2e-5; bf16: within one unit of bf16's last place of the plain version")
+    check(all(r["ok"] for r in paths), "decode_attention disagrees with decode_attention_ref at a path's "
+          "shape: " + json.dumps([r for r in paths if not r["ok"]]))
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": None, "by_fill": rows}
+
+
+def _k5_close(torch, out, ref) -> tuple:
+    """(ok, max |diff|): tests/test_torch_cuda.py's bar (fp32: 2e-5; bf16: a
+    unit of bf16's last place)."""
+    gap = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        ok = bool(torch.allclose(out, ref, atol=2e-5, rtol=2e-5))
+    else:
+        ok = bool((gap <= 2.0**-7 * ref.float().abs() + 1e-6).all())
+    return ok and out.dtype == ref.dtype, gap.max().item()
+
+
+def _k5_path_cases(torch, dev) -> list:
+    """K5 against decode_attention_ref at every DECODE_ATTN_PATHS shape of every
+    DECODE_ATTN_CONFIGS config, the cache a per-layer view of a stacked cache
+    as the model indexes it (read in place), with K5's splits and launches."""
+    import repro_torch.kernels.decode_attention as da
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    rows, seed = [], 330
+    for name in DECODE_ATTN_CONFIGS:
+        cfg = _cfg(name)
+        Hkv, g, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+        shapes = [(B, L, dt, fills) for B, L, dt, fills in DECODE_ATTN_PATHS]
+        if cfg.sliding_window is not None and cfg.sliding_window < DECODE_ATTN_SHAPE[1]:
+            W = cfg.sliding_window  # a full ring: fill_len = L
+            shapes += [(1, W, "float32", (W,)), (4, W, "bfloat16", (W,))]
+        for B, L, dt, fills in shapes:
+            seed += 1
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            dtype = getattr(torch, dt)
+            q = torch.randn((B, 1, Hkv * g, D), generator=gen, device=dev).to(dtype)
+            stacked = torch.randn((2, 2, B, L, Hkv, D), generator=gen, device=dev).to(dtype)
+            k, v = stacked[0, 1], stacked[1, 1]  # the model's cache["k"][r]
+            for fill in fills:
+                before = da.LAUNCHES
+                ok, err = _k5_close(torch, da.decode_attention(q, k, v, fill),
+                                    decode_attention_ref(q, k, v, fill))
+                p = da.plan(q, k, v, fill, da._sms(q.device))
+                ok = ok and da.LAUNCHES - before == p.launches
+                rows.append({"config": name, "B": B, "L": L, "Hkv": Hkv, "g": g, "D": D, "dtype": dt,
+                             "fill": fill, "splits": p.splits, "launches": da.LAUNCHES - before,
+                             "ok": ok, "max_abs_err": err})
+            del q, stacked, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_granite_attention(torch, dev) -> dict:
     """K1 at the attention shape of all 32 granite layers, beside torch's fused
     attention."""
@@ -2197,7 +2382,7 @@ def phase_granite_prefill(torch, dev) -> dict:
     emit("granite_profile", prefill_forward=prefill_prof, decode_4_steps=decode_prof,
          prefill_share_of_busy=shares)
     check(counts == {"flash_attention": cfg.n_layers, "gmm": 3 * cfg.n_layers, "mamba_scan": 0,
-                     "mlstm": 0},
+                     "mlstm": 0, "decode_attention": 0},
           f"granite forward launched {counts}, expected {cfg.n_layers} attention and "
           f"{3 * cfg.n_layers} grouped products")
     check(finite, "granite bf16 logits or aux are not finite")
@@ -2237,15 +2422,15 @@ def phase_granite_decode(torch, dev) -> None:
     emit("granite_decode", n_layers=cfg.n_layers, steps=S, max_abs_err=err, tol="atol=rtol=2e-2",
          launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(finite and ok, f"granite decode_step logits disagree with forward: max abs err {err}")
-    check(counts["gmm"] == 3 * cfg.n_layers * S and counts["flash_attention"] == 0,
-          f"granite decode launched {counts}, expected {3 * cfg.n_layers * S} grouped products")
+    _check_decode_counts(counts, cfg, S, "granite decode")
 
 
 def phase_granite_serve(torch) -> None:
     from repro_torch.launch.serve import serve
 
     batch, steps = 4, 32
-    n_layers = _cfg(GRANITE).n_layers
+    cfg = _cfg(GRANITE)
+    n_layers = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     tps = serve(GRANITE, smoke=False, batch=batch, steps=steps, max_len=128, verbose=False)
@@ -2254,7 +2439,7 @@ def phase_granite_serve(torch) -> None:
     emit("granite_serve", n_layers=n_layers, batch=batch, steps=steps, tok_per_s=tps,
          ms_per_step=batch / tps * 1e3, launches=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(tps > 0, "granite serve returned no rate")
-    check(counts["gmm"] == 3 * n_layers * steps, f"granite serve launched {counts}")
+    _check_decode_counts(counts, cfg, steps, "granite serve")
 
 
 # ------------------------------ the logits product ---------------------------
@@ -2384,13 +2569,18 @@ A5_PHASE = {WHISPER: "whisper", GEMMA12: "gemma3_12b", MIXTRAL: "mixtral", STABL
             PHI3V: "phi3_vision", NEMOTRON: "nemotron"}
 
 
+def _n_attention(cfg) -> int:
+    """Self-attention layers (global and sliding-window)."""
+    return sum(k in ("attn", "local") for k, _ in cfg.pattern_unit()) * cfg.num_pattern_repeats
+
+
 def _a5_expected(cfg) -> dict:
-    """K1-K4 launches of one forward: one K1 a self-attention layer, one more
-    a cross-attention and an encoder layer; three K4 an MoE layer."""
-    n_attn = sum(k in ("attn", "local") for k, _ in cfg.pattern_unit()) * cfg.num_pattern_repeats
+    """K1-K5 launches of one forward: one K1 a self-attention layer, one more
+    a cross-attention and an encoder layer; three K4 an MoE layer; no K5."""
+    n_attn = _n_attention(cfg)
     n_moe = sum(m for _, m in cfg.pattern_unit()) * cfg.num_pattern_repeats
     n_k1 = 2 * n_attn + cfg.encoder.n_layers if cfg.encoder is not None else n_attn
-    return {"flash_attention": n_k1, "mamba_scan": 0, "mlstm": 0, "gmm": 3 * n_moe}
+    return {"flash_attention": n_k1, "mamba_scan": 0, "mlstm": 0, "gmm": 3 * n_moe, "decode_attention": 0}
 
 
 def phase_a5_model(torch, dev, name) -> dict:
@@ -2492,12 +2682,14 @@ def phase_a5_model(torch, dev, name) -> dict:
 
     short = A5_PHASE[name]
     want32, want = _a5_expected(cfg32), _a5_expected(cfg)
-    # a decode step: K1 in each cross-attention (the self-attention against the
-    # cache is plain, as in the reference), K4 three times an MoE layer
+    # a decode step: K1 in each cross-attention, K4 three times an MoE layer,
+    # K5 once a self-attention layer (one split: these caches fill one tile)
     n_cross = dcfg.n_layers if dcfg.encoder is not None else 0
     want_decode = {"flash_attention": n_cross * A5_DECODE_STEPS, "mamba_scan": 0, "mlstm": 0,
-                   "gmm": want32["gmm"] * A5_DECODE_STEPS}
-    want_serve = {"flash_attention": 0, "mamba_scan": 0, "mlstm": 0, "gmm": want["gmm"] * steps_serve}
+                   "gmm": want32["gmm"] * A5_DECODE_STEPS,
+                   "decode_attention": _n_attention(dcfg) * A5_DECODE_STEPS}
+    want_serve = {"flash_attention": 0, "mamba_scan": 0, "mlstm": 0, "gmm": want["gmm"] * steps_serve,
+                  "decode_attention": _n_attention(cfg) * steps_serve}
     emit(f"{short}_prefill", config=cfg.name, n_layers=cfg.n_layers, B=B, S=S,
          positions=S + cfg.vision_tokens, encoder_frames=cfg.encoder.n_frames if cfg.encoder else 0,
          init_s=init_s, param_gb=param_gb, init_peak_gb=init_peak_gb, launches=counts,
@@ -4195,7 +4387,9 @@ def phase_sharded_step(torch, device: str = "cuda", backend: str = "nccl") -> No
     """The sharding layer on the card: an NCCL world of one (a TCP store on
     localhost) and a 1x1 mesh. gemma3-1b's smoke train step on DTensors
     equals the same step without a mesh bit for bit (loss, every parameter,
-    m and v); four ``serve`` steps on the mesh equal them without it;
+    m and v); four ``serve`` steps on the mesh equal them without it at
+    ``impl="ref"`` (a cache on a mesh is attended by the plain split-K path,
+    never by K5);
     ``compressed_psum`` over the world of one equals ``ef_compress``. The
     process group is destroyed before the next phase."""
     import torch.distributed as dist
@@ -4242,7 +4436,7 @@ def phase_sharded_step(torch, device: str = "cuda", backend: str = "nccl") -> No
         train_equal = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
         loss_equal = torch.equal(on_mesh[2]["loss"].full_tensor(), plain[2]["loss"])
 
-        serve = make_serve_step(cfg)
+        serve = make_serve_step(cfg, impl="ref")
         tok = torch.arange(B, device=device)[:, None] % cfg.vocab_size
         set_ambient_mesh(None)
         cache = init_cache(cfg, B, S, device=device)

@@ -135,8 +135,9 @@ def make_serve_step(cfg: ArchConfig, impl: str = "auto") -> Callable:
 
     One new token per request with the KV cache / recurrent state carried
     (updated in place). ``impl`` picks the route of the ops that have a
-    kernel (the MoE's expert products, cross-attention); the dry-run serves
-    at ``"ref"``, as the reference's does.
+    kernel (the attention over the cache, the MoE's expert products,
+    cross-attention); the dry-run serves at ``"ref"``, as the reference's
+    does.
     """
     ops.resolve_impl(impl, torch.empty(0))  # an unknown impl raises here
 

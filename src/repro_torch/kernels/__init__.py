@@ -5,6 +5,7 @@
 * :mod:`repro_torch.kernels.mamba_scan`      — wrapper of ``csrc/mamba_scan.cu``
 * :mod:`repro_torch.kernels.mlstm`           — wrapper of ``csrc/mlstm.cu``
 * :mod:`repro_torch.kernels.gmm`             — wrapper of ``csrc/gmm.cu``
+* :mod:`repro_torch.kernels.decode_attention` — wrapper of ``csrc/decode_attention.cu``
 * :mod:`repro_torch.kernels.ops`             — ``impl`` dispatch ("auto" | "cuda" | "ref")
 * :mod:`repro_torch.kernels._build`          — nvcc build of ``csrc/*.cu``, loaded with ctypes
 

@@ -20,13 +20,20 @@ import torch
 from repro_torch.distributed import parallel
 from repro_torch.distributed.hints import active_mesh
 
+from repro_torch.kernels.decode_attention import decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gmm import gmm as gmm_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan as mamba_scan_kernel
 from repro_torch.kernels.mlstm import mlstm_chunkwise
-from repro_torch.kernels.ref import attention_ref, gmm_ref, mamba_scan_ref, mlstm_chunked_scan
+from repro_torch.kernels.ref import (
+    attention_ref,
+    decode_attention_ref,
+    gmm_ref,
+    mamba_scan_ref,
+    mlstm_chunked_scan,
+)
 
-__all__ = ["attention", "gmm", "mamba_scan", "mlstm", "resolve_impl"]
+__all__ = ["attention", "decode_attention", "gmm", "mamba_scan", "mlstm", "resolve_impl"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -53,6 +60,21 @@ def attention(
     fn = functools.partial(flash_attention if resolve_impl(impl, q) == "cuda" else attention_ref,
                            causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     return fn(q, k, v) if active_mesh(q) is None else parallel.attention(fn, q, k, v)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    fill_len: int,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One query token a sequence against the slots ``[0, fill_len)`` of its
+    KV cache. A cache on a mesh takes ``models.attention``'s plain split-K
+    path, never this one."""
+    fn = decode_attention_kernel if resolve_impl(impl, q) == "cuda" else decode_attention_ref
+    return fn(q, k, v, fill_len)
 
 
 def mamba_scan(

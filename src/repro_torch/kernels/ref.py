@@ -13,8 +13,8 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "gmm_ref", "mamba_scan_ref", "mlstm_chunkwise_ref", "mlstm_chunked_scan",
-           "mlstm_rounded_scan"]
+__all__ = ["attention_ref", "decode_attention_ref", "decode_scores", "gmm_ref", "mamba_scan_ref",
+           "mlstm_chunkwise_ref", "mlstm_chunked_scan", "mlstm_rounded_scan"]
 
 #: the finite stand-in for -inf of the mLSTM stabiliser (empty state, causal
 #: mask): with -inf, ``b + m_prev - m_comb`` would give NaN
@@ -74,6 +74,39 @@ def attention_ref(
     probs = torch.where(mask.any(dim=-1)[:, None], probs, 0.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def decode_scores(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    k: torch.Tensor,  # (B, L, Hkv, D)
+    fill_len: int,
+    offset: int = 0,
+) -> torch.Tensor:
+    """A decode step's scores ``q.k / sqrt(D)`` in fp32, (B, Hkv, g, 1, L),
+    with the slots ``offset + t >= fill_len`` at -inf."""
+    B, L, Hkv, D = k.shape
+    g = q.shape[2] // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, 1, Hkv, g, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    ok = torch.arange(L, device=q.device) + offset < fill_len
+    return scores.masked_fill(~ok, float("-inf"))
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    k: torch.Tensor,  # (B, L, Hkv, D)
+    v: torch.Tensor,  # (B, L, Hkv, D)
+    fill_len: int,
+) -> torch.Tensor:
+    """Single-token attention against a cache over its slots ``[0, fill_len)``
+    (a full sliding-window ring passes ``fill_len = L``): scores, softmax and
+    ``P.V`` in fp32, output (B, 1, Hq, D) in ``q.dtype``. The reference's
+    ``_decode_attention``, an einsum over the whole cache."""
+    B, _, Hkv, D = k.shape
+    probs = torch.softmax(decode_scores(q, k, fill_len), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, 1, q.shape[2], D).to(q.dtype)
 
 
 def mamba_scan_ref(

@@ -9,7 +9,6 @@ a mesh.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -17,7 +16,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import parallel
 from repro_torch.distributed.hints import active_mesh, axis_size, hint
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Params, apply_norm, apply_rope, dense, dense_init, norm_init
 
@@ -110,6 +109,8 @@ def attn_decode(
     position: int,  # absolute token position (rope)
     write_idx: int,  # cache slot (== position, or position % window for ring-buffer SWA caches)
     fill_len: int,  # number of valid cache slots
+    *,
+    impl: str = "auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: write k/v at ``write_idx``, attend over valid slots.
 
@@ -117,14 +118,15 @@ def attn_decode(
     returned. Sliding-window layers size their cache to the window and
     overwrite slots modularly (ring buffer): attention is permutation-invariant
     over keys and rope is applied at absolute positions before the write, so no
-    window mask is needed — eviction is the mask.
+    window mask is needed — eviction is the mask. ``impl`` is the route of the
+    attention over the cache (``ops.decode_attention``: on the card, K5).
     """
     B = x.shape[0]
     positions = torch.full((B, 1), position, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     _write_slot(cache["k"], k[:, 0], write_idx)
     _write_slot(cache["v"], v[:, 0], write_idx)
-    out = _decode_attention(q, cache["k"], cache["v"], fill_len)
+    out = _decode_attention(q, cache["k"], cache["v"], fill_len, impl)
     return dense(p["wo"], out.reshape(B, 1, -1)), cache
 
 
@@ -142,39 +144,43 @@ def _decode_attention(
     k: torch.Tensor,  # (B, L, Hkv, D)
     v: torch.Tensor,
     fill_len: int,
-    offset: int = 0,
-    reduce: Optional[Callable] = None,
+    impl: str,
 ) -> torch.Tensor:
-    """Single-token attention against a cache, in plain torch ops (fp32).
-
-    The reference has no Pallas kernel here either; it is bound by reading
-    the cache. On a mesh (:func:`repro_torch.distributed.parallel.decode_attention`)
-    k and v hold the slots ``offset ..`` of a cache whose sequence may be
-    split over ranks, and ``reduce(t, op)`` combines the softmax's max, its
-    sum and the weighted values over them (split-K decoding).
-    """
+    """Single-token attention against a cache: ``ops.decode_attention`` (K5 on
+    the card, the plain version on the CPU or at ``impl="ref"``). A cache on a
+    mesh (:func:`repro_torch.distributed.parallel.decode_attention`) takes the
+    plain split-K path of :func:`_decode_attention_local` on each rank's
+    slots, whatever ``impl``."""
     mesh = active_mesh(k)
     if mesh is not None:
-        return parallel.decode_attention(functools.partial(_decode_attention, fill_len=fill_len),
+        return parallel.decode_attention(functools.partial(_decode_attention_local, fill_len=fill_len),
                                          q, k, v, mesh)
-    B, L, Hkv, D = k.shape
-    Hq = q.shape[2]
-    g = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qf = q.float().reshape(B, 1, Hkv, g, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
-    ok = torch.arange(L, device=q.device) + offset < fill_len
-    scores = scores.masked_fill(~ok, float("-inf"))
-    if reduce is None:  # the whole sequence here
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-        return out.reshape(B, 1, Hq, D).to(q.dtype)
+    return ops.decode_attention(q, k, v, fill_len, impl=impl)
+
+
+def _decode_attention_local(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    fill_len: int,
+    offset: int,
+    reduce: Optional[Callable],
+) -> torch.Tensor:
+    """One rank's part on a mesh, in plain torch ops (fp32): k and v hold the
+    slots ``offset ..`` of a cache whose sequence may be split over ranks, and
+    ``reduce(t, op)`` combines the softmax's max, its sum and the weighted
+    values over them (split-K decoding); None where the rank holds every slot
+    (``offset`` 0)."""
+    if reduce is None:
+        return ref.decode_attention_ref(q, k, v, fill_len)
+    B, _, Hkv, D = k.shape
+    scores = ref.decode_scores(q, k, fill_len, offset)
     m = reduce(torch.amax(scores, dim=-1, keepdim=True), "max")
     p = torch.exp(scores - m)
     den = reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
     out = reduce(torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()), "sum")
     out = out / den[..., 0].permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
+    return out.reshape(B, 1, q.shape[2], D).to(q.dtype)
 
 
 # ------------------------- cross attention (enc-dec) -----------------------

@@ -560,14 +560,16 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step; returns (logits (B, 1, V) fp32, the cache updated in place).
 
-    Attention against the cache and the one-token mamba, mLSTM and sLSTM
-    steps are plain torch, as in the reference, which reaches no kernel here
-    either. The MoE runs its dispatch over the batch's B tokens and its expert
-    products through ``ops.gmm`` at ``impl="auto"``: on the card, K4 at one
-    row per expert. With ``enc_out``, every attention layer that has
-    ``cross`` attends its one token over it at ``impl="auto"``: on the card,
-    flash attention at Sq = 1. ``impl`` is the route of those two
-    (``"ref"``: their plain versions on any device).
+    Attention against the cache goes through ``ops.decode_attention``: on the
+    card, K5, which reads the filled slots of the cache once in its own type
+    (the reference reaches no kernel here; a cache on a mesh takes the plain
+    split-K path). The one-token mamba, mLSTM and sLSTM steps are plain torch,
+    as in the reference. The MoE runs its dispatch over the batch's B tokens
+    and its expert products through ``ops.gmm``: on the card, K4 at one row
+    per expert. With ``enc_out``, every attention layer that has ``cross``
+    attends its one token over it: on the card, flash attention at Sq = 1.
+    ``impl`` is the route of those three (``"auto"``: the kernels on the card;
+    ``"ref"``: their plain versions on any device).
     """
     with obs.span("rt.decode_step"):
         dev = resolve_device(device)
@@ -602,7 +604,7 @@ def _decode_layer(
         fill_len = min(index + 1, L)
         with obs.span("rt.attention"):
             h = apply_norm(p["norm1"], x, cfg.norm)
-            a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len)
+            a, _ = attn_decode(p["attn"], cfg, h, st, index, write_idx, fill_len, impl=impl)
             x = x + a
         if enc_out is not None and "cross" in p:
             h = apply_norm(p["cross_norm"], x, cfg.norm)

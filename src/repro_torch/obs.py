@@ -23,9 +23,11 @@ Spans (:mod:`repro_torch.models.transformer`, :mod:`repro_torch.models.moe`):
 with the indexing of its parameters and cache; ``rt.attention``,
 ``rt.mamba``, ``rt.moe``, ``rt.mlp``, ``rt.logits``; inside the MoE
 ``rt.moe.route``, ``rt.moe.dispatch``, ``rt.moe.experts``,
-``rt.moe.combine``. Counter: ``rt.moe.copies``, one sample a MoE layer
+``rt.moe.combine``. Counters: ``rt.moe.copies``, one sample a MoE layer
 call, ``(counts, capacity)``: the copies routed to each expert and the
-copies an expert keeps at most.
+copies an expert keeps at most; ``rt.attention.decode``
+(:mod:`repro_torch.kernels.decode_attention`), one sample a K5 call,
+``(fill_len, splits)``: the slots attended and the splits of the cache.
 
 Run any ``torch.profiler.profile`` around serving to get both; nothing is
 kept otherwise.

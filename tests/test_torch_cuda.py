@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels.decode_attention as da
 import repro_torch.kernels.flash_attention as fa
 import repro_torch.kernels.gmm as gk
 import repro_torch.kernels.mamba_scan as ms
@@ -18,6 +19,7 @@ import repro_torch.kernels.mlstm as ml
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     attention_ref,
+    decode_attention_ref,
     gmm_ref,
     mamba_scan_ref,
     mlstm_chunked_scan,
@@ -784,6 +786,140 @@ def test_gmm_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte boundary"):
         buf = torch.empty(128 * 64 + 8, dtype=torch.bfloat16, device=card)
         gk.gmm(buf[4:4 + 128 * 64].view(128, 64), rhs, ids)  # contiguous, 8 bytes off
+
+
+# ------------------------------ K5: decode attention -------------------------------
+# the (g, D) of every attention layer of the registry's configs (tests/test_torch_kernels.py
+# holds the list to the registry); a 4,096-slot cache filled to 1, 431 (a ragged tile) and all
+DECODE_GD = [(1, 64), (1, 80), (1, 96), (2, 256), (3, 64), (4, 128), (4, 256), (12, 192)]
+DECODE_L = 4096
+
+
+def _decode_inputs(card, B, L, Hkv, g, D, q_dtype, kv_dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, 1, Hkv * g, D), generator=gen, device=card).to(getattr(torch, q_dtype))
+    k, v = (torch.randn((B, L, Hkv, D), generator=gen, device=card).to(getattr(torch, kv_dtype))
+            for _ in range(2))
+    return q, k, v
+
+
+def _assert_decode_close(out, ref):
+    """fp32: the plain version's bar; bf16: both round one fp32 result, so at
+    most a unit of bf16's last place apart."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    else:
+        gap = (out.float() - ref.float()).abs()
+        assert bool((gap <= 2.0**-7 * ref.float().abs() + 1e-6).all()), float(gap.max())
+
+
+@pytest.mark.parametrize("fill", [1, 431, DECODE_L])
+@pytest.mark.parametrize("g,D", DECODE_GD)
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("bfloat16", "bfloat16"), ("float32", "float32"),
+                                              ("float32", "bfloat16")])
+def test_decode_kernel_matches_plain_version(card, q_dtype, kv_dtype, g, D, fill):
+    """Against the plain version on the card. An fp32 q over a bf16 cache gives
+    an fp32 output at the fp32 bar: P and P.V stay in fp32 (P rounded to bf16
+    would miss it by ~100x)."""
+    q, k, v = _decode_inputs(card, 2, DECODE_L, 2, g, D, q_dtype, kv_dtype)
+    out = da.decode_attention(q, k, v, fill)
+    _assert_decode_close(out, decode_attention_ref(q, k, v, fill))
+
+
+@pytest.mark.parametrize("B,Hkv,fill", [(64, 8, 431), (1, 8, DECODE_L), (3, 2, 1000)])
+def test_decode_kernel_at_mixtrals_shape(card, B, Hkv, fill):
+    """mixtral's 32/8 heads of 128 in bf16: its decode cell's 64 streams (one
+    split), one stream over the whole cache (many), and a shape in between."""
+    q, k, v = _decode_inputs(card, B, DECODE_L, Hkv, 4, 128, "bfloat16", "bfloat16", seed=1)
+    _assert_decode_close(da.decode_attention(q, k, v, fill), decode_attention_ref(q, k, v, fill))
+
+
+def test_decode_kernel_reads_a_strided_cache_in_place(card):
+    """The per-layer view of a stacked cache, and heads taken from wider rows
+    of a stacked cache: no copy, the plain version's result."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    stacked = torch.randn((3, 2, 2, 512, 8, 136), generator=gen, device=card).to(torch.bfloat16)
+    q = torch.randn((2, 1, 32, 128), generator=gen, device=card).to(torch.bfloat16)
+    k, v = stacked[1, 0, ..., :128], stacked[2, 1, ..., :128]
+    assert not k.is_contiguous()
+    out = da.decode_attention(q, k, v, 300)
+    _assert_decode_close(out, decode_attention_ref(q, k.contiguous(), v.contiguous(), 300))
+    heads = stacked[0, 0, :, :, ::2, :128]  # every other kv head: 4 of them
+    out = da.decode_attention(q[:, :, :16], heads, heads, 512)
+    _assert_decode_close(out, decode_attention_ref(q[:, :, :16], heads.contiguous(), heads.contiguous(), 512))
+
+
+@pytest.mark.parametrize("B,fill", [(64, 431), (1, DECODE_L)])
+def test_decode_kernel_gives_the_same_bits_twice(card, B, fill):
+    """One split and many: the splits merge in a fixed order, with no atomics."""
+    q, k, v = _decode_inputs(card, B, DECODE_L, 8, 4, 128, "bfloat16", "bfloat16", seed=3)
+    first = da.decode_attention(q, k, v, fill)
+    assert torch.equal(first, da.decode_attention(q, k, v, fill))
+
+
+def test_decode_kernel_counts_launches_and_records_its_sample(card):
+    """One launch with one split, two (split and combine) with more; under a
+    profiler each call leaves ``rt.attention.decode`` (fill_len, splits)."""
+    from repro_torch import obs
+
+    q, k, v = _decode_inputs(card, 64, DECODE_L, 8, 4, 128, "bfloat16", "bfloat16")
+    one = da.plan(q, k, v, 431, da._sms(card))
+    many = da.plan(q[:1], k[:1], v[:1], DECODE_L, da._sms(card))
+    assert one.splits == 1 and many.splits > 1
+    before = da.LAUNCHES
+    ops.decode_attention(q, k, v, 431)
+    assert da.LAUNCHES == before + 1
+    ops.decode_attention(q[:1], k[:1], v[:1], DECODE_L, impl="cuda")
+    assert da.LAUNCHES == before + 3
+    ops.decode_attention(q, k, v, 431, impl="ref")
+    assert da.LAUNCHES == before + 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        ops.decode_attention(q, k, v, 431)
+        ops.decode_attention(q[:1], k[:1], v[:1], DECODE_L)
+    assert obs.samples("rt.attention.decode") == [(431, 1), (DECODE_L, many.splits)]
+
+
+def test_decode_kernel_rejects_what_it_does_not_take(card):
+    q, k, v = _decode_inputs(card, 2, 64, 2, 4, 64, "bfloat16", "bfloat16")
+    with pytest.raises(ValueError, match="q lies on cpu"):
+        da.decode_attention(q.cpu(), k, v, 10)
+    with pytest.raises(ValueError, match="fill_len"):
+        da.decode_attention(q, k, v, 0)
+    with pytest.raises(ValueError, match="fill_len"):
+        da.decode_attention(q, k, v, 65)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.decode_attention(q, k.half(), v.half(), 10)
+    with pytest.raises(ValueError, match="a multiple of 8 up to 256"):
+        da.decode_attention(q[..., :60], k[..., :60], v[..., :60], 10)
+    flat = torch.zeros(64 * 2 * 64 + 4, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        da.decode_attention(q, k, flat[4:].view(1, 64, 2, 64).expand(2, 64, 2, 64), 10)
+    with pytest.raises(ValueError, match="17 query heads a kv head"):
+        da.decode_attention(torch.zeros(2, 1, 34, 64, dtype=torch.bfloat16, device=card), k, v, 10)
+
+
+def test_decode_step_on_the_card_launches_k5_in_each_attention_layer(card):
+    """mixtral's smoke config in fp32 with heads of 16: 8 decode steps on the
+    card against the same steps at ``impl="ref"`` on the card, one K5 launch
+    an attention layer a step, and none at ``"ref"``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = dataclasses.replace(smoke_config("mixtral_8x7b"), dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=0, device=card)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 8))).to(card)
+    caches = {impl: init_cache(cfg, 4, 64) for impl in ("auto", "ref")}
+    with torch.inference_mode():
+        for i in range(8):
+            before = da.LAUNCHES
+            got, _ = decode_step(cfg, params, caches["auto"], tokens[:, i : i + 1], i)
+            assert da.LAUNCHES == before + cfg.n_layers
+            want, _ = decode_step(cfg, params, caches["ref"], tokens[:, i : i + 1], i, impl="ref")
+            assert da.LAUNCHES == before + cfg.n_layers
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), i
 
 
 # ----------------------- the batched MIG simulator -----------------------

@@ -21,6 +21,8 @@ from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan
 from repro.kernels.mlstm import mlstm_chunkwise as jax_mlstm_chunkwise
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
+from repro.models.attention import _decode_attention as jax_decode_attention
+import repro_torch.kernels.decode_attention as da
 import repro_torch.kernels.flash_attention as fa
 import repro_torch.kernels.gmm as gk
 import repro_torch.kernels.mamba_scan as ms
@@ -28,6 +30,7 @@ import repro_torch.kernels.mlstm as ml
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
     attention_ref,
+    decode_attention_ref,
     mamba_scan_ref,
     mlstm_chunked_scan,
     mlstm_chunkwise_ref,
@@ -156,7 +159,7 @@ def test_kernel_modules_import_without_nvcc():
     env = {**os.environ, "PATH": "", "CUDA_HOME": "/nonexistent"}
     code = (
         "import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.kernels.mamba_scan\n"
+        "import repro_torch.kernels.mamba_scan, repro_torch.kernels.decode_attention\n"
         "from repro_torch.kernels import _build\n"
         "try:\n"
         "    _build.build_all()\n"
@@ -628,3 +631,161 @@ def test_mlstm_emulation_pads_a_ragged_T_as_the_kernel_masks_it():
     out = mlstm_rounded_scan(*args, operands="exact")
     assert out.shape == args[0].shape
     assert _mlstm_rel(out, mlstm_chunkwise_ref(*args)) < 2e-3
+
+
+# K5's plain version and host-side plan. The (g, D) of every attention layer
+# of the registry's configs (full and smoke): g = n_heads / n_kv_heads.
+DECODE_GD = [(1, 64), (1, 80), (1, 96), (2, 256), (3, 64), (4, 128), (4, 256), (12, 192)]
+DECODE_SMOKE_GD = [(1, 16), (1, 32), (2, 16), (2, 32), (4, 16)]
+DECODE_L = 12
+
+
+def _decode_arrays(B, L, Hkv, g, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, 1, Hkv * g, D), (B, L, Hkv, D), (B, L, Hkv, D))]
+
+
+def test_decode_head_shapes_cover_the_registry():
+    from repro_torch.configs import all_configs, smoke_config
+
+    def gd(c):
+        return (c.n_heads // c.n_kv_heads, c.resolved_head_dim)
+
+    attn = {n: c for n, c in all_configs().items() if {"attn", "local"} & set(c.layer_kinds())}
+    assert {gd(c) for c in attn.values()} == set(DECODE_GD)
+    assert {gd(smoke_config(n)) for n in attn} == set(DECODE_SMOKE_GD)
+
+
+@pytest.mark.parametrize("fill", [1, DECODE_L - 1, DECODE_L])
+@pytest.mark.parametrize("g,D", DECODE_GD + DECODE_SMOKE_GD)
+def test_decode_attention_ref_matches_jax(g, D, fill):
+    arrays = _decode_arrays(2, DECODE_L, 2, g, D)
+    out = decode_attention_ref(*_port(arrays, "float32"), fill)
+    want = jax_decode_attention(*_jax(arrays, "float32"), fill)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("g,D", [(4, 128), (12, 192)])
+def test_decode_attention_ref_matches_jax_in_bf16(g, D):
+    arrays = _decode_arrays(2, DECODE_L, 2, g, D, seed=1)
+    out = decode_attention_ref(*_port(arrays, "bfloat16"), 7)
+    want = jax_decode_attention(*_jax(arrays, "bfloat16"), 7)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+def test_decode_attention_ref_on_a_full_ring():
+    """A sliding-window ring that has wrapped holds its slots out of order and
+    passes fill_len = L: the same output as the slots in order."""
+    q, k, v = _decode_arrays(2, DECODE_L, 2, 4, 256, seed=2)
+    ring = [np.roll(t, 5, axis=1) for t in (k, v)]
+    out = decode_attention_ref(*_port([q, *ring], "float32"), DECODE_L)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_decode_attention(*_jax([q, *ring], "float32"),
+                                                                            DECODE_L)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    in_order = decode_attention_ref(*_port([q, k, v], "float32"), DECODE_L)
+    np.testing.assert_allclose(out.numpy(), in_order.numpy(), atol=TOL["float32"], rtol=TOL["float32"])
+
+
+def test_decode_ops_auto_on_cpu_takes_ref():
+    q, k, v = _port(_decode_arrays(2, DECODE_L, 2, 4, 64), "float32")
+    before = da.LAUNCHES
+    out = ops.decode_attention(q, k, v, 5, impl="auto")
+    assert da.LAUNCHES == before
+    assert torch.equal(out, decode_attention_ref(q, k, v, 5))
+    assert torch.equal(ops.decode_attention(q, k, v, 5, impl="ref"), out)
+
+
+def test_decode_ops_cuda_on_cpu_raises():
+    q, k, v = _port(_decode_arrays(2, DECODE_L, 2, 4, 64), "float32")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ops.decode_attention(q, k, v, 5, impl="cuda")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        da.decode_attention(q, k, v, 5)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.decode_attention(q, k, v, 5, impl="interpret")
+
+
+def _decode_plan(B, L, Hkv, g, D, fill, dtype=torch.bfloat16, sms=da.H100_SMS):
+    q = torch.zeros(B, 1, Hkv * g, D, dtype=dtype)
+    k = torch.zeros(B, L, Hkv, D, dtype=dtype)
+    return da.plan(q, k, k, fill, sms)
+
+
+# (B, L, Hkv, g, D, fill, splits): mixtral's and jamba's decode cells (64
+# streams at ~430 and ~1,250 slots) take one split; a lone stream at 4,096
+# slots takes many; the plan never cuts more splits than filled tiles
+DECODE_PLANS = [
+    (64, 4096, 8, 4, 128, 431, 1),
+    (64, 4096, 8, 4, 128, 1250, 1),
+    (64, 4096, 8, 4, 128, 4096, 1),
+    (1, 4096, 8, 4, 128, 4096, 32),
+    (1, 4096, 8, 4, 128, 431, 14),
+    (1, 4096, 8, 4, 128, 1, 1),
+    (2, 1024, 1, 4, 256, 1024, 32),
+    (1, 4096, 8, 12, 192, 4096, 32),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_PLANS, ids=[f"plan{i}" for i in range(len(DECODE_PLANS))])
+def test_decode_plan_splits_by_shape(case):
+    *shape, fill, splits = case
+    p = _decode_plan(*shape, fill)
+    assert p.splits == splits and p.tiles == -(-fill // da.TILE)
+    # whole tiles a split: only the last split's last tile is ragged, and no split is empty
+    assert (p.splits - 1) * p.tiles_per_split < p.tiles <= p.splits * p.tiles_per_split
+    B, _, Hkv, g, D = shape
+    assert p.blocks == B * Hkv * p.splits and p.launches == (1 if p.splits == 1 else 2)
+    assert p.smem_bytes == da.smem_bytes(torch.bfloat16, D, g) <= 232_448
+
+
+def test_decode_plan_adapts_to_the_card_and_the_cache_type():
+    """Fewer SMs, fewer splits; an fp32 cache moves twice the bytes a tile,
+    so fewer blocks keep the same bytes in flight."""
+    assert _decode_plan(1, 4096, 8, 4, 128, 4096, sms=66).splits == 16
+    assert _decode_plan(1, 4096, 8, 4, 128, 4096, torch.float32).splits == 16
+    assert _decode_plan(1, 4096, 8, 4, 128, 4096).smem_bytes == da.smem_bytes(torch.bfloat16, 128, 4)
+    assert da.smem_bytes(torch.float32, 256, 16) <= 232_448  # the largest block the kernel takes
+
+
+def test_decode_plan_reads_strided_cache_views():
+    """The per-layer view of a stacked cache, and heads sliced from wider rows:
+    read in place through their strides."""
+    stacked = torch.zeros(3, 2, 64, 8, 128, dtype=torch.bfloat16)
+    q = torch.zeros(2, 1, 32, 128, dtype=torch.bfloat16)
+    assert _decode_plan(2, 64, 8, 4, 128, 64) == da.plan(q, stacked[1], stacked[2], 64)
+    wide = torch.zeros(2, 64, 8, 136, dtype=torch.bfloat16)[..., :128]  # rows 272 bytes apart
+    assert da.plan(q, wide, wide, 10).splits >= 1
+    heads = torch.zeros(2, 64, 16, 128, dtype=torch.bfloat16)[:, :, ::2]  # every other head
+    assert da.plan(q, heads, heads, 10).tiles == 1
+
+
+def test_decode_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="a multiple of 8 up to 256"):
+        _decode_plan(1, 64, 2, 4, 100, 10)
+    with pytest.raises(ValueError, match="a multiple of 8 up to 256"):
+        _decode_plan(1, 64, 2, 4, 264, 10)
+    with pytest.raises(ValueError, match="17 query heads a kv head"):
+        _decode_plan(1, 64, 2, 17, 64, 10)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _decode_plan(1, 64, 2, 4, 64, 10, torch.float16)
+    for fill in (0, 65, 3.0, True):
+        with pytest.raises(ValueError, match="fill_len"):
+            _decode_plan(1, 64, 2, 4, 64, fill)
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q must be"):
+        da.plan(q.expand(1, 2, 8, 64), k, k, 10)
+    with pytest.raises(ValueError, match="does not fit the cache"):
+        da.plan(q[:, :, :7], k, k, 10)
+    with pytest.raises(ValueError, match="one \\(B, L, Hkv, D\\) shape"):
+        da.plan(q, k, k[:, :32], 10)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        da.plan(q, k.transpose(2, 3).contiguous().transpose(2, 3), k, 10)
+    flat = torch.zeros(64 * 2 * 64 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        da.plan(q, k, flat[4:].view(1, 64, 2, 64), 10)  # 8 bytes past a 16-byte boundary
+    odd = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64]  # heads 136 bytes apart
+    with pytest.raises(ValueError, match="must start on 16 bytes"):
+        da.plan(q, odd, odd, 10)

@@ -117,6 +117,22 @@ def test_decode_matches_forward(fp32):
                                atol=FWD_TOL, rtol=FWD_TOL)
 
 
+def test_decode_step_routes_the_cache_attention_by_impl(fp32):
+    """``impl`` reaches the attention over the cache: ``"cuda"`` asks for K5,
+    which CPU tensors cannot take; ``"ref"`` is the plain version, the CPU's
+    ``"auto"``."""
+    cfg, params, tokens = fp32["cfg"], fp32["params"], fp32["tokens"]
+    with pytest.raises(ValueError, match="decode_attention: q lies on cpu"):
+        decode_step(cfg, params, init_cache(cfg, B, 16, device="cpu"), tokens[:, :1], 0, impl="cuda",
+                    device="cpu")
+    steps = {}
+    for impl in ("auto", "ref"):
+        cache = init_cache(cfg, B, 16, device="cpu")
+        steps[impl] = [decode_step(cfg, params, cache, tokens[:, i : i + 1], i, impl=impl, device="cpu")[0]
+                       for i in range(3)]
+    assert all(torch.equal(a, r) for a, r in zip(steps["auto"], steps["ref"]))
+
+
 def test_forward_bf16_matches_jax():
     jcfg, cfg = _cfgs("bfloat16")
     jparams = jax_init_params(jcfg, seed=2)
